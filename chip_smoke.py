@@ -3,20 +3,38 @@ against the plain PyTorch version.
 
     python3 chip_smoke.py
 
-Phases (one JSON line each; any failure exits nonzero):
+Phases (one JSON line each; any failure exits nonzero). The surface path:
   1 environment  torch / CUDA versions, the card's name and power limit
-  2 build        nvcc builds every kernel from csrc/ (seconds, ptxas report)
+  2 build        nvcc builds every kernel from csrc/, all sources at once
+                 (seconds, ptxas report)
   3 K1           closest-hit traversal vs the plain version on the first
                  generation's object-space wavefront of the 512^2 frame
   4 K2           any-hit traversal vs the plain version on the depth-1
                  shadow-spawn matrix
-  5 K3           a triangle table over 6 MB (the TPU kernel's HBM variant)
+  5 K3           a triangle table over 6 MB (the TPU kernel's HBM variant),
+                 and one frame over it through render_surface
   6 frames       render_surface at depth 1 and 2 on the card, launch counts,
                  each frame against its impl="plain" twin
   7 golden       64^2 frames against the JAX package's committed frames
   8 times        CUDA-event times of every launch of the depth-1 and
                  depth-2 frames and of the K3 subset (with bounds), of the
                  plain version, and of the frames
+The volume path (scenes: `make_volume_scene`, the volume bench configuration
+of bench_inner.py:208-229 on the procedural wavelet brick):
+  hold_K4 x4     the whole-brick slice kernel vs its plain version on the
+                 arguments trace_volume_fast gives it for the 64^3 brick at
+                 512^2: plain, isosurface, AMR subgrid, slice plane
+                 and the three together; six subgrids in one launch; every
+                 launch of the wavefront frame
+  hold_K5        the z-window kernel vs its plain version on the 256^3
+                 brick (64 MiB, 17 windows), and vs K4 on the same brick
+  frame_volume   render_volume on the card for those five, launch counts,
+                 each frame against its impl="plain" twin
+  frame_wavefront  two 96x96x49 bricks through the wavefront tracer (K4
+                 under march_round), vs its plain twin and vs the gather
+                 march
+  golden_volume  64^2 frames against the JAX package's committed frames
+  time_launch / time_frame  CUDA-event and host times with bounds
 then the kernels line and, last, the device line.
 
 The scene is the flagship bench configuration (bench_inner.py --fast) with
@@ -44,16 +62,23 @@ import torch  # noqa: E402
 from gravit_tpu_torch.accel.scene_accel import build_scene_bvh  # noqa: E402
 from gravit_tpu_torch.ops import _build  # noqa: E402
 from gravit_tpu_torch.ops import bvh_traverse as bt  # noqa: E402
-from gravit_tpu_torch.render.renderer import render_surface  # noqa: E402
+from gravit_tpu_torch.ops import slice_march as sm  # noqa: E402
+from gravit_tpu_torch.render import volume_tracer as vt  # noqa: E402
+from gravit_tpu_torch.render.renderer import (render_surface,  # noqa: E402
+                                              render_volume)
 from gravit_tpu_torch.render.scene_build import Instance, build_scene  # noqa: E402
-from gravit_tpu_torch.render.tracer import trace_image_fast  # noqa: E402
+from gravit_tpu_torch.render.tracer import (make_arena,  # noqa: E402
+                                            trace_image_fast)
+from gravit_tpu_torch.render.volume_scene import build_volume_scene  # noqa: E402
 from gravit_tpu_torch.scene import image as img  # noqa: E402
 from gravit_tpu_torch.scene.camera import PerspectiveCamera  # noqa: E402
 from gravit_tpu_torch.scene.light import point_light  # noqa: E402
 from gravit_tpu_torch.scene.material import Material  # noqa: E402
 from gravit_tpu_torch.scene.mesh import Mesh  # noqa: E402
+from gravit_tpu_torch.scene.volume import Volume, wavelet_volume  # noqa: E402
 
 GOLDEN = ROOT / "tests" / "data" / "torch_port_golden.npz"
+VOLUME_GOLDEN = ROOT / "tests" / "data" / "torch_port_volume_golden.npz"
 FLAGSHIP_BANDS = 187          # 187 x 187 x 2 = 69,938 sphere triangles
 K3_BANDS = 270                # 145,800 triangles: a 7 MB triangle table
 TPU_VMEM_TABLE_BYTES = 6 * 2**20   # above it the TPU kernel's table is in HBM
@@ -123,6 +148,75 @@ def make_scene(seed: int = 0, bands: int = FLAGSHIP_BANDS, width: int = 512,
         instances=[Instance(mesh_id=0, m=np.eye(4, dtype=np.float32))],
         lights=[point_light((0.0, 0.1, 0.5), (1.0, 1.0, 1.0))],
         camera=camera)
+
+
+@dataclasses.dataclass
+class VolumeSpec:
+    volumes: list
+    instances: list
+    camera: PerspectiveCamera
+
+
+def bricked_wavelet(n: int) -> list:
+    """The wavelet split along x into two bricks that share one sample
+    plane; the right brick is padded to the left one's shape by repeating
+    its last plane (the two-brick scene of the reference's volume-domain
+    tests)."""
+    full = wavelet_volume(n)
+    s, half = full.samples, n // 2
+    ones = np.ones(3, np.float32)
+    return [
+        Volume(samples=s[:, :, :half + 1].copy(),
+               origin=np.zeros(3, np.float32), spacing=ones, tf=full.tf),
+        Volume(samples=np.concatenate([s[:, :, half:], s[:, :, -1:]],
+                                      axis=2).copy(),
+               origin=np.array([half, 0, 0], np.float32), spacing=ones,
+               tf=full.tf),
+    ]
+
+
+VOLUME_KINDS = ("plain", "iso", "amr", "slice", "bricks")
+
+
+def make_volume_scene(kind: str, n: int = 64, width: int = 512,
+                      height: int = 512,
+                      eye: tuple = (4.0, 4.0, 4.0)) -> VolumeSpec:
+    """The volume bench configuration (bench_inner.py:208-229): the
+    procedural wavelet brick of n^3 samples, gray-ramp transfer function
+    with max opacity 0.05, identity instance, camera at eye*n looking at
+    the brick's centre, fov 30 degrees, up +z. `kind` adds features:
+    "iso" an isosurface at the mean sample, "amr" a level-1 subgrid of
+    (n/2)^3 samples at origin n/4 with spacing 0.5, "slice" the plane
+    (1, 0.2, 0.1, -0.5625 n), several joined by "+"; "bricks" splits the
+    brick in two along x."""
+    feats = set(kind.split("+"))
+    if not feats <= set(VOLUME_KINDS) or (len(feats) > 1
+                                          and feats & {"plain", "bricks"}):
+        raise ValueError(f"kind: {VOLUME_KINDS}, features joined by '+'; "
+                         f"got {kind!r}")
+    eye4 = np.eye(4, dtype=np.float32)
+    if kind == "bricks":
+        volumes, instances = bricked_wavelet(n), [(0, eye4), (1, eye4)]
+    else:
+        vol = wavelet_volume(n)
+        if "iso" in feats:
+            vol.isovalues = (float(vol.samples.mean()),)
+        if "amr" in feats:
+            sub = wavelet_volume(n // 2)
+            sub.level = 1
+            sub.origin = np.full(3, n / 4.0, np.float32)
+            sub.spacing = np.full(3, 0.5, np.float32)
+            vol.subgrids.append(sub)
+        if "slice" in feats:
+            vol.slices = ((1.0, 0.2, 0.1, -0.5625 * n),)
+        volumes, instances = [vol], [(0, eye4)]
+    c = (n - 1) / 2.0
+    camera = PerspectiveCamera(
+        eye=tuple(float(e) * n for e in eye), focus=(c, c, c),
+        up=(0.0, 0.0, 1.0), fov=float(30.0 * np.pi / 180.0),
+        film_width=width, film_height=height, samples=1, max_depth=1,
+        jitter_window=0.0)
+    return VolumeSpec(volumes=volumes, instances=instances, camera=camera)
 
 
 # ---------------------------------------------------------------------------
@@ -259,6 +353,364 @@ def compare_frames(a: torch.Tensor, b: torch.Tensor, w: int, h: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the volume path
+
+# fp32 operations per marched (ray, plane) pair, counted from
+# csrc/slice_march.cu: plane position and validity 6, window row and z
+# weights 6, grid coordinates and clips 8, two hat-tap pairs 36, the 2x2
+# z-lerped bilinear 21, the table lookup and four lerps 20, opacity
+# correction and compositing 13 (powf counted as one). Per pair and
+# feature: the subgrid's affine map and bounds test 12, an isovalue's
+# crossing test 5, a slice plane's affine function and test 16. The
+# resample inside a subgrid and the taps at a crossing run for a part of
+# the pairs the kernel does not count; they are left out of the bound.
+PLANE_FLOPS = 110
+SUBGRID_FLOPS = 12
+ISO_FLOPS = 5
+SLICE_FLOPS = 16
+# chip_smoke's limits for a kernel against its plain version
+HOLD_TOL = 2e-5
+EVENT_FRAC = 1e-4
+V64_KINDS = ("plain", "iso", "amr", "slice")
+ALL_FEATURES = "iso+amr+slice"
+
+
+def capture_slice_launches(fn) -> list:
+    """Run fn() and return (plan, color_in, w_in, slab_rows) of every
+    slice-kernel launch it made (the shapes the main path gives it)."""
+    seen = []
+    orig = sm._run_kernel
+
+    def record(*args):
+        seen.append(args)
+        return orig(*args)
+
+    sm._run_kernel = record
+    try:
+        fn()
+    finally:
+        sm._run_kernel = orig
+    torch.cuda.synchronize()
+    return seen
+
+
+def count_rounds(fn) -> tuple:
+    """(fn(), the number of march_round calls it made)."""
+    calls = []
+    orig = vt.march_round
+
+    def record(*args, **kw):
+        calls.append(1)
+        return orig(*args, **kw)
+
+    vt.march_round = record
+    try:
+        out = fn()
+    finally:
+        vt.march_round = orig
+    return out, len(calls)
+
+
+def slice_bound_ms(plan, pairs: int) -> tuple:
+    """Least time the card could take for one slice-march launch: its fp32
+    operations (this run's marched pairs) over the fp32 peak, against its
+    bytes (brick, subgrids, table, 12 ray rows in, the 4 rows of color and
+    w out) over the memory rate."""
+    per_pair = (PLANE_FLOPS + SUBGRID_FLOPS * len(plan.subs)
+                + ISO_FLOPS * len(plan.iso) + SLICE_FLOPS * len(plan.slices))
+    flops = per_pair * pairs
+    n = plan.rows[0].shape[0]
+    nbytes = 4 * (plan.S.numel() + sum(Ss.numel() for Ss, _ in plan.subs)
+                  + plan.rgba.numel() + 16 * n)
+    t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", flops, nbytes)
+
+
+def hold_slice(name: str, call: tuple) -> dict:
+    """A slice kernel against its plain version on the same launch
+    arguments. Every ray must agree in color and w within HOLD_TOL and in
+    its flags, except EVENT rays: rays that disagree AND whose w lies
+    within 1e-5 of the 0.99 termination threshold on either side, or whose
+    first iso / slice-plane crossing falls on another plane (a last-bit
+    difference moved a discrete event by one plane). Event rays are
+    counted and limited, a disagreeing ray without such an event fails."""
+    plan, color_in, w_in, slab_rows = call
+    k = sm._run_kernel(plan, color_in, w_in, slab_rows, diag=True)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    p = sm._run_plain(plan, color_in, w_in, slab_rows)
+    torch.cuda.synchronize()
+    plain_s = time.time() - t0
+    n = k.w.shape[0]
+    near = ((k.w - 0.99).abs() <= 1e-5) | ((p.w - 0.99).abs() <= 1e-5)
+    err = torch.maximum((k.color - p.color).abs().max(dim=1).values,
+                        (k.w - p.w).abs())
+    kf, pf = sm._flags(k.w, plan.active), sm._flags(p.w, plan.active)
+    event = ((err > HOLD_TOL) | (kf != pf)) \
+        & (near | (k.cross_k != p.cross_k))
+    max_err = float(err[~event].max())
+    flag_mism = int(((kf != pf) & ~event).sum())
+    n_event = int(event.sum())
+    nz = plan.S.shape[0]
+    rec = dict(
+        kernel=name, rays=n, brick=list(plan.S.shape), planes=plan.n_planes,
+        windows=len(sm._windows(nz, slab_rows)) if nz > slab_rows else 1,
+        pairs=[int(k.pairs), int(p.pairs)], max_abs_err=max_err,
+        event_rays=n_event, near_threshold_rays=int(near.sum()),
+        crossing_plane_differs=int((k.cross_k != p.cross_k).sum()),
+        flag_mismatches=flag_mism,
+        saturated=int((k.w > 0.99).sum()),
+        crossings=int((k.cross_k >= 0).sum()), plain_s=plain_s,
+        tolerance=dict(max_abs_err=HOLD_TOL, event_frac=EVENT_FRAC),
+        ok=(max_err <= HOLD_TOL and n_event <= EVENT_FRAC * n
+            and flag_mism == 0))
+    log("hold_" + name, **rec)
+    if not rec["ok"]:
+        raise SystemExit(f"{name}: kernel disagrees with the plain version")
+    rec["color"] = k.color
+    rec["w"] = k.w
+    return rec
+
+
+def time_slice_launch(name: str, call: tuple, card: str, pairs: int) -> dict:
+    """CUDA-event time of the kernel alone (launch prepared once), of the
+    whole wrapper call, and the launch's bound."""
+    plan, color_in, w_in, slab_rows = call
+    launch = sm._prepare_launch(plan, color_in, w_in, slab_rows)
+    ms = cuda_ms(lambda: sm._launch(launch), reps=20)
+    wrapper_ms = cuda_ms(lambda: sm._run_kernel(*call), reps=10)
+    b_ms, b_by, flops, nbytes = slice_bound_ms(plan, pairs)
+    rec = dict(ms=ms, wrapper_ms=wrapper_ms, bound_ms=b_ms, bound_by=b_by,
+               share_of_bound=b_ms / ms, flops=flops, bytes=nbytes,
+               rays=int(color_in.shape[0]), pairs=pairs)
+    log("time_launch", launch=name, card=card, **rec)
+    return rec
+
+
+def time_frame(name: str, fn, card: str, kernel_ms: float, rays: int,
+               reps: int = 10) -> dict:
+    ms = cuda_ms(fn, reps=reps)
+    t0 = time.perf_counter()
+    for _ in range(max(1, reps // 2)):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / max(1, reps // 2)
+    rec = dict(ms=ms, host_ms=host_ms, kernel_ms=kernel_ms,
+               glue_ms=ms - kernel_ms, kernel_share=kernel_ms / ms,
+               rays_per_s=rays / ms * 1e3)
+    log("time_frame", frame=name, card=card, **rec)
+    return rec
+
+
+def volume_frame(spec: VolumeSpec, impl=None) -> torch.Tensor:
+    return render_volume(spec.volumes, spec.instances, spec.camera,
+                         device="cuda", impl=impl)
+
+
+def check_volume_frame(phase: str, name: str, spec: VolumeSpec,
+                       expect: dict, extra_ok=None) -> tuple:
+    """Drive one frame through render_volume with the slice counts at 0
+    just before and read just after; hold it against its plain twin."""
+    W, H = spec.camera.film_width, spec.camera.film_height
+    sm.reset_launch_counts()
+    fb, rounds = count_rounds(lambda: volume_frame(spec))
+    torch.cuda.synchronize()
+    counts = {"slice": sm.launches_slice, "slab": sm.launches_slab}
+    cmp = compare_frames(fb, volume_frame(spec, impl="plain"), W, H)
+    ok = (counts == expect and cmp["finite"] and cmp["coverage"] > 0.05
+          and cmp["byte_frac"] <= 1e-4)
+    log(phase, frame=name, film=[W, H], rounds=rounds, launches=counts,
+        expected=expect, vs_plain=cmp, tolerance=dict(byte_frac=1e-4), ok=ok)
+    if not ok:
+        raise SystemExit(f"{phase} {name} failed")
+    return fb, counts
+
+
+def volume_phases(dev, card: str, film: int = 512, small: int = 64,
+                  big: int = 256, split: int = 96) -> list:
+    """Every volume phase; returns the K4 and K5 rows of the kernels line.
+    The defaults are the full sizes: a 512^2 film, the 64^3 bench brick,
+    the 256^3 brick that marches as windows, two 96x96x49 bricks."""
+    W = H = film
+    specs = {k: make_volume_scene(k, small, W, H) for k in V64_KINDS}
+    specs["V256"] = make_volume_scene("plain", big, W, H)
+    scenes = {k: build_volume_scene(s.volumes, s.instances, device=dev)
+              for k, s in specs.items()}
+    rays = {k: s.camera.generate_rays(dev, volume=True)
+            for k, s in specs.items()}
+    gates = {k: vt.can_slice_march(scenes[k], rays[k].direction)
+             for k in specs}
+    log("volume_scenes", film=[W, H],
+        bricks={k: list(scenes[k].vol_samples[0].shape) for k in specs},
+        brick_mib={k: scenes[k].vol_samples[0].numel() * 4 / 2**20
+                   for k in specs},
+        gate={k: list(g) for k, g in gates.items()})
+    if not all(g[0] for g in gates.values()):
+        raise SystemExit("a volume configuration failed the slice gate")
+
+    def fast(k):
+        _, axis, flip = gates[k]
+        return vt.trace_volume_fast(scenes[k], rays[k], W, H, axis=axis,
+                                    flip=flip)
+
+    calls = {k: capture_slice_launches(lambda: fast(k))[0] for k in specs}
+
+    # ---- the kernels against their plain versions ------------------------
+    held = {k: hold_slice("K5" if k == "V256" else "K4_" + k, calls[k])
+            for k in specs}
+    n = W * H
+    iso_sat = held["iso"]["saturated"]
+    differs = {k: float((held[k]["color"] - held["plain"]["color"])
+                        .abs().max()) for k in ("iso", "amr", "slice")}
+    ok = iso_sat > 0.01 * n and all(v > 0.02 for v in differs.values())
+    log("hold_K4_features", iso_saturated=iso_sat, rays=n,
+        max_diff_from_plain_frame=differs, ok=ok)
+    if not ok:
+        raise SystemExit("a K4 feature did nothing")
+    # the three features in one launch (a hold only: no frame, no time)
+    aspec = make_volume_scene(ALL_FEATURES, small, W, H)
+    ascene = build_volume_scene(aspec.volumes, aspec.instances, device=dev)
+    hold_slice("K4_" + ALL_FEATURES, capture_slice_launches(
+        lambda: vt.trace_volume_fast(ascene, rays["plain"], W, H))[0])
+    del ascene
+    # six subgrids along the brick's diagonal: the kernel reads them from a
+    # device table of any length (a hold only)
+    mspec = make_volume_scene("plain", small, W, H)
+    for i in range(6):
+        sub = wavelet_volume(small // 4)
+        sub.level = 1
+        sub.origin = np.full(3, small / 8.0 * (i + 1), np.float32)
+        sub.spacing = np.full(3, 0.5, np.float32)
+        mspec.volumes[0].subgrids.append(sub)
+    mscene = build_volume_scene(mspec.volumes, mspec.instances, device=dev)
+    many = hold_slice("K4_amr_x6", capture_slice_launches(
+        lambda: vt.trace_volume_fast(mscene, rays["plain"], W, H))[0])
+    d6 = float((many["color"] - held["plain"]["color"]).abs().max())
+    log("hold_K4_amr_x6_differs", max_diff_from_plain_frame=d6, ok=d6 > 0.02)
+    if not d6 > 0.02:
+        raise SystemExit("six subgrids did nothing")
+    del mscene, many
+    # K5 against K4's entry point on the same brick, marched whole
+    plan, c_in, w_in, slab_rows = calls["V256"]
+    whole = sm._run_kernel(plan, c_in, w_in, plan.S.shape[0], diag=True)
+    torch.cuda.synchronize()
+    err = max(float((whole.color - held["V256"]["color"]).abs().max()),
+              float((whole.w - held["V256"]["w"]).abs().max()))
+    log("hold_K5_vs_K4", brick=list(plan.S.shape), slab_rows=slab_rows,
+        pairs=[int(held["V256"]["pairs"][0]), int(whole.pairs)],
+        max_abs_err=err, tolerance=1e-6, ok=err <= 1e-6)
+    if err > 1e-6:
+        raise SystemExit("K5 disagrees with K4 on the same brick")
+    del whole
+
+    # ---- the main path, through the user's entry point -------------------
+    main_counts = {"slice": 0, "slab": 0}
+    for k in specs:
+        expect = ({"slice": 0, "slab": 1} if k == "V256"
+                  else {"slice": 1, "slab": 0})
+        _, counts = check_volume_frame("frame_volume", k, specs[k], expect)
+        for key in counts:
+            main_counts[key] += counts[key]
+
+    # two bricks through the wavefront tracer: K4 under march_round, one
+    # launch per brick per round; then the gather march for both bricks
+    bricks = make_volume_scene("bricks", split, W, H)
+    bscene = build_volume_scene(bricks.volumes, bricks.instances, device=dev)
+    brays = bricks.camera.generate_rays(dev, volume=True)
+    barena = make_arena(brays, 0)
+    saxes = vt.slice_axes_for(bscene, brays.direction)
+    _, rounds = count_rounds(lambda: vt.trace_volume(
+        bscene, barena, W, H, slice_axes=saxes))
+    fb_wave, counts = check_volume_frame(
+        "frame_wavefront", "V2x49", bricks, {"slice": 2 * rounds, "slab": 0})
+    for key in counts:
+        main_counts[key] += counts[key]
+    # the wavefront's launches carry masks and, from the second round on,
+    # the color and opacity of the brick before: hold each one
+    bcalls = capture_slice_launches(lambda: vt.trace_volume(
+        bscene, barena, W, H, slice_axes=saxes))
+    for i, call in enumerate(bcalls):
+        rec = hold_slice(f"K4_wavefront_{i}", call)
+        del rec["color"], rec["w"]
+    fb_march = vt.trace_volume(bscene, barena, W, H, slice_axes=())
+    d = (fb_wave[:, :3] - fb_march[:, :3]).abs()
+    ok = (all(a is not None for a in saxes) and float(d.mean()) < 2e-3
+          and bricks.volumes[0].samples.shape
+          == (split, split, split // 2 + 1))
+    log("frame_wavefront_vs_march", slice_axes=[a and list(a) for a in saxes],
+        brick=list(bricks.volumes[0].samples.shape),
+        float_mean=float(d.mean()), float_max=float(d.max()),
+        tolerance=dict(float_mean=2e-3), ok=ok)
+    if not ok:
+        raise SystemExit("the slice engine and the gather march disagree")
+
+    # ---- against the JAX package's committed frames ----------------------
+    gold = np.load(VOLUME_GOLDEN)
+    gw, gh = int(gold["width"]), int(gold["height"])
+    for kind in VOLUME_KINDS:
+        gspec = make_volume_scene(kind, int(gold["n"]), gw, gh,
+                                  eye=tuple(float(x) for x in gold["eye"]))
+        ref = gold[f"fb_{kind}"]
+        fb = volume_frame(gspec).cpu().numpy()
+        dpix = np.abs(fb[:, :3] - ref[:, :3]).max(axis=1)
+        cmp = dict(
+            byte_frac=float(np.mean(img.to_rgb8(fb, gw, gh)
+                                    != img.to_rgb8(ref, gw, gh))),
+            event_frac=float(np.mean(dpix > 1e-5)), float_max=float(dpix.max()),
+            finite=bool(np.isfinite(fb).all()))
+        ok = (cmp["finite"] and cmp["byte_frac"] <= 1e-3
+              and cmp["event_frac"] <= 1e-3)
+        log("golden_volume", frame=kind, film=[gw, gh], brick=int(gold["n"]),
+            vs_jax=cmp, tolerance=dict(byte_frac=1e-3, event_frac=1e-3),
+            ok=ok)
+        if not ok:
+            raise SystemExit(f"golden_volume {kind} failed")
+
+    # ---- times ------------------------------------------------------------
+    launch = {k: time_slice_launch("K5" if k == "V256" else "K4_" + k,
+                                   calls[k], card, held[k]["pairs"][0])
+              for k in specs}
+    # what the window ladder costs: the same 256^3 brick marched whole
+    plan, c_in, w_in, _ = calls["V256"]
+    time_slice_launch("K4_whole_V256", (plan, c_in, w_in, plan.S.shape[0]),
+                      card, held["V256"]["pairs"][0])
+    plain_ms = {k: cuda_ms(lambda: sm._run_plain(*calls[k]), reps=1,
+                           warmup=0) for k in ("plain", "V256")}
+    log("time_plain", card=card, K4_plain=plain_ms["plain"],
+        K5=plain_ms["V256"])
+    for k in specs:
+        time_frame("fast_" + k, lambda: fast(k), card, launch[k]["ms"], n)
+    scene64 = scenes["plain"]
+    arena64 = make_arena(rays["plain"], 0)
+    time_frame("march_brick_V64", lambda: vt.trace_volume(
+        scene64, arena64, W, H, max_rounds=16), card, 0.0, n, reps=4)
+    bms = [cuda_ms(lambda: sm._launch(launch_), reps=5)
+           for launch_ in [sm._prepare_launch(*c) for c in bcalls]]
+    log("time_wavefront_launches", card=card, ms=bms,
+        rays_queued=[int(c[0].active.sum()) for c in bcalls])
+    time_frame("wavefront_V2x49", lambda: vt.trace_volume(
+        bscene, barena, W, H, slice_axes=saxes), card, sum(bms), n, reps=4)
+    time_frame("wavefront_V2x49_march", lambda: vt.trace_volume(
+        bscene, barena, W, H, slice_axes=()), card, 0.0, n, reps=2)
+
+    def row(name, line, key, hold, launches):
+        return dict(
+            name=name, route="cuda",
+            source="gravit_tpu_torch/csrc/slice_march.cu",
+            replaces=f"gravit_tpu/ops/slice_march.py:{line}",
+            launches=launches, max_abs_err=hold["max_abs_err"],
+            ms=launch[key]["ms"], plain_ms=plain_ms[key],
+            bound_ms=launch[key]["bound_ms"],
+            bound_by=launch[key]["bound_by"], library_ms=None)
+
+    return [row("slice_march (whole brick, K4)", 716, "plain",
+                held["plain"], main_counts["slice"]),
+            row("slice_march (z-windows, K5)", 743, "V256", held["V256"],
+                main_counts["slab"])]
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -332,8 +784,22 @@ def main() -> int:
         subset_blocks=[int(blocks[0]), int(blocks[-1]) + 1])
     if big_accel.tri.numel() * 4 <= TPU_VMEM_TABLE_BYTES:
         raise SystemExit("K3: the triangle table is not over 6 MB")
-    hold_traversal(k3_args, "K3")
-    del big_scene, big_accel, cap3, a3, lanes
+    k3 = hold_traversal(k3_args, "K3")
+    # the main path over that table: one frame through the entry point
+    bt.reset_launch_counts()
+    fb = render_surface(big.meshes, big.instances, big.lights, big.camera,
+                        device="cuda")
+    torch.cuda.synchronize()
+    k3_launches = bt.launches_closest
+    cover = float((fb[:, :3].sum(dim=1) > 0).float().mean())
+    ok = (k3_launches == 1 and bt.launches_any_hit == 1 and cover > 0.3
+          and bool(torch.isfinite(fb).all()))
+    log("frame_K3", launches={"closest": k3_launches,
+                              "any_hit": bt.launches_any_hit},
+        expected={"closest": 1, "any_hit": 1}, coverage=cover, ok=ok)
+    if not ok:
+        raise SystemExit("the frame over the 6 MB table failed")
+    del big_scene, big_accel, cap3, a3, lanes, fb
 
     # ---- 6: the main path, through the user's entry point ---------------
     main_counts = {"closest": 0, "any_hit": 0}
@@ -430,7 +896,12 @@ def main() -> int:
             ("bvh_traverse (closest hit, K1)", "K1_gen0", k1,
              main_counts["closest"]),
             ("bvh_traverse (any hit, K2)", "K2_depth1", k2,
-             main_counts["any_hit"]))]
+             main_counts["any_hit"]),
+            ("bvh_traverse (table over 6 MB, K3)", "K3_subset", k3,
+             k3_launches))]
+    del scene, accel, rays, frames
+
+    kernel_rows += volume_phases(dev, card)
     log("done", seconds=time.time() - t_start)
 
     print(json.dumps({"kernels": kernel_rows}))

@@ -27,6 +27,23 @@ class RayType(enum.IntEnum):
     SECONDARY = 2
 
 
+class VolumeRayType(enum.IntEnum):
+    """Volume ray types (actor/ORays.h:5-8)."""
+
+    PRIMARY = 1
+    SHADOW = 2
+    AO = 3
+    EMPTY = 4
+
+
+# Volume termination bitmask, stored in `depth` (actor/ORays.h:10-14).
+RAY_SURFACE = 0x1
+RAY_OPAQUE = 0x2
+RAY_BOUNDARY = 0x4
+RAY_TIMEOUT = 0x8
+RAY_EXTERNAL_BOUNDARY = 0x10
+
+
 @dataclasses.dataclass
 class RayArena:
     """Fixed-capacity wavefront of rays; all tensors share leading dim N."""
@@ -38,8 +55,8 @@ class RayArena:
     t: torch.Tensor          # (N,)  f32
     w: torch.Tensor          # (N,)  f32
     id: torch.Tensor         # (N,)  i32  pixel index into the framebuffer
-    depth: torch.Tensor      # (N,)  i32  bounce budget
-    type: torch.Tensor       # (N,)  i32  RayType
+    depth: torch.Tensor      # (N,)  i32  bounce budget | volume term flags
+    type: torch.Tensor       # (N,)  i32  RayType / VolumeRayType
     inst: torch.Tensor       # (N,)  i32  target instance, NO_INSTANCE if none
     prev: torch.Tensor       # (N,)  i32  instance the ray just left
     active: torch.Tensor     # (N,)  bool lane carries a live ray

@@ -18,6 +18,7 @@ import torch
 from gravit_tpu_torch.accel.scene_accel import SceneBVH
 from gravit_tpu_torch.core.rays import RayArena
 from gravit_tpu_torch.device import resolve_device
+from gravit_tpu_torch.render import volume_scene as vs
 from gravit_tpu_torch.render.scene_build import (STATIC_FIELDS, TENSOR_FIELDS,
                                                  SceneData)
 
@@ -55,3 +56,30 @@ def rays_from_numpy(arrays: Mapping[str, np.ndarray], device=None) -> RayArena:
     device = resolve_device(device)
     names = [f.name for f in dataclasses.fields(RayArena)]
     return RayArena(**_tensors(RayArena, arrays, names, device))
+
+
+def volume_scene_from_numpy(arrays: Mapping[str, object], device=None,
+                            **static) -> vs.VolumeSceneData:
+    """VolumeSceneData from the JAX scene's leaves as numpy: the per-volume
+    fields as lists of arrays, the per-instance fields as arrays,
+    `vol_subgrids` as a per-volume tuple of (samples, origin, spacing, lo,
+    hi) tuples (optional); `static` names num_instances, vol_step, ...
+    (gravit_tpu's non-pytree fields)."""
+    device = resolve_device(device)
+    unknown = set(static) - set(vs.STATIC_FIELDS)
+    if unknown:
+        raise TypeError(f"unknown static fields {sorted(unknown)}")
+    names = vs.VOLUME_TENSOR_FIELDS + vs.INSTANCE_TENSOR_FIELDS
+    missing = [n for n in names if n not in arrays]
+    if missing:
+        raise KeyError(f"VolumeSceneData: missing arrays {missing}")
+
+    def tensor(x):
+        return torch.tensor(np.asarray(x), device=device)
+
+    fields = {n: tuple(tensor(x) for x in arrays[n])
+              for n in vs.VOLUME_TENSOR_FIELDS}
+    fields.update({n: tensor(arrays[n]) for n in vs.INSTANCE_TENSOR_FIELDS})
+    subgrids = tuple(tuple(tuple(tensor(x) for x in sub) for sub in subs)
+                     for subs in arrays.get("vol_subgrids", ()))
+    return vs.VolumeSceneData(**fields, vol_subgrids=subgrids, **static)

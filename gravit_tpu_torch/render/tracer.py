@@ -18,6 +18,7 @@ broadcast-multiply + left-to-right sums, never as matmuls.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -511,3 +512,24 @@ def trace_image_fast(scene: SceneData, rays: RayArena, width: int,
                 torch.ones((m_gen,), dtype=torch.float32, device=dev),
                 deposit_g)
     return image_lib.clamp_rgb(fb)
+
+
+def make_arena(camera_rays: RayArena, num_lights: int,
+               slack: float = 1.25) -> RayArena:
+    """Embed camera rays into an arena with room for shadow spawns.
+
+    num_lights=0 (volume wavefronts, which never spawn) gets a tight arena:
+    every per-round op scales with arena capacity, so slack lanes are pure
+    marching cost. Capacity is rounded up to a multiple of 1024.
+    """
+    n = camera_rays.capacity
+    spawn_mult = (1 + num_lights) if num_lights > 0 else 1
+    cap = int(n * spawn_mult * (slack if num_lights > 0 else 1.0))
+    cap = -(-cap // 1024) * 1024
+    if cap == n:
+        return camera_rays
+    arena = RayArena.zeros(cap, camera_rays.origin.device)
+    return RayArena(**{
+        f.name: torch.cat([getattr(camera_rays, f.name),
+                           getattr(arena, f.name)[n:]])
+        for f in dataclasses.fields(RayArena)})

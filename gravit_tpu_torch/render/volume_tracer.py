@@ -1,0 +1,381 @@
+"""Wavefront volume tracer: ray-march bricks + flag-protocol shuffle, and the
+single-brick megapass. Counterpart of gravit_tpu/render/volume_tracer.py.
+
+Round structure mirrors the reference's volume path (SURVEY.md §3.4):
+  1. march every queued ray through its brick (the slice engine where the
+     gate allows, ops/volume_march.py otherwise): the ospTraceRays step;
+     rays accumulate rgb in color, opacity in w, and get RAY_OPAQUE /
+     RAY_BOUNDARY termination flags in depth
+  2. volume shuffle (DomainTracer.cpp:255-305): BOUNDARY rays re-enter the
+     instance BVH (excluding the brick just left), bump origin by
+     (1+eps)*t into the next brick or become EXTERNAL_BOUNDARY; PRIMARY
+     rays with OPAQUE|EXTERNAL deposit color*w and retire
+The initial camera-ray filter is the generic 0.95-bump queueing
+(DomainTracer.h:158-167): flags are only honored after the first march.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from gravit_tpu_torch.core.math3d import dot3
+from gravit_tpu_torch.core.rays import (FLT_MAX, RAY_BOUNDARY,
+                                        RAY_EXTERNAL_BOUNDARY, RAY_OPAQUE,
+                                        RayArena, VolumeRayType)
+from gravit_tpu_torch.ops import slice_march as sm
+from gravit_tpu_torch.ops.volume_march import march_brick
+from gravit_tpu_torch.render.volume_scene import VolumeSceneData
+from gravit_tpu_torch.scene import image as image_lib
+
+RAY_EPSILON = 1e-6
+
+
+def _instance_bvh_hit(scene: VolumeSceneData, arena: RayArena,
+                      exclude: torch.Tensor):
+    """Closest instance AABB (leaf `update=true` semantics), excluding
+    `exclude` per ray. Returns (found, next_inst, tnear)."""
+    dd = arena.direction
+    small = torch.abs(dd) < 1e-30
+    d_safe = torch.where(small, 1.0, dd)
+    inv_dir = torch.where(small, torch.where(dd < 0, -1e30, 1e30),
+                          1.0 / d_safe)
+    lo = (scene.inst_lo[None] - arena.origin[:, None]) * inv_dir[:, None]
+    hi = (scene.inst_hi[None] - arena.origin[:, None]) * inv_dir[:, None]
+    tnear = torch.minimum(lo, hi).max(dim=-1).values
+    tfar = torch.maximum(lo, hi).min(dim=-1).values
+    ids = torch.arange(scene.num_instances, device=dd.device)
+    hit = ((tfar > tnear) & (tnear > RAY_EPSILON)
+           & (tnear < arena.t_max[:, None])
+           & (ids[None, :] != exclude[:, None]))
+    tnear = torch.where(hit, tnear, FLT_MAX)
+    nxt = torch.argmin(tnear, dim=1)
+    t_entry = torch.gather(tnear, 1, nxt[:, None])[:, 0]
+    return t_entry < FLT_MAX, nxt.to(torch.int32), t_entry
+
+
+def filter_initial(scene: VolumeSceneData, arena: RayArena) -> RayArena:
+    """Generic first queueing with 0.95*t bump (DomainTracer.h:158-167)."""
+    pending = arena.active & (arena.inst < 0)
+    found, nxt, t_entry = _instance_bvh_hit(
+        scene, arena, torch.full_like(arena.inst, -1))
+    requeue = pending & found
+    origin = torch.where(
+        requeue[:, None],
+        arena.origin + arena.direction * (t_entry * 0.95)[:, None],
+        arena.origin)
+    return arena.replace(
+        origin=origin,
+        inst=torch.where(requeue, nxt, arena.inst),
+        active=arena.active & (~pending | requeue),
+    )
+
+
+def _per_volume(field: tuple, v: int) -> tuple:
+    """A per-volume feature tuple may be shorter than num_volumes."""
+    return field[v] if v < len(field) else ()
+
+
+def march_round(scene: VolumeSceneData, arena: RayArena,
+                differentiable: bool = False, slice_axes: tuple = (),
+                impl=None):
+    """Phase 1: march all queued rays through their bricks (one pass per
+    volume; rays of other volumes are masked).
+
+    Rays whose instance has no LOCAL brick data (inst_vol == -1 under the
+    domain scheduler) park untouched.
+
+    slice_axes: optional per-volume tuple of (axis, flip) | None. A volume
+    with an entry marches through the slice engine (ops/slice_march.py)
+    instead of the gather march; slice_axes_for computes the entries.
+    impl="plain" runs the slice engine's plain version on any device.
+    """
+    safe_inst = torch.clamp(arena.inst, 0, scene.num_instances - 1).long()
+    vol_of_ray = scene.inst_vol[safe_inst]
+    queued = arena.active & (arena.inst >= 0) & (vol_of_ray >= 0)
+    minv = scene.inst_minv[safe_inst]
+    m3 = minv[:, :3, :3]
+    # broadcast-multiply + left-to-right sums, never a matmul
+    o_obj = dot3(m3, arena.origin[:, None, :]) + minv[:, :3, 3]
+    d_obj = dot3(m3, arena.direction[:, None, :])
+
+    color, w, depth = arena.color, arena.w, arena.depth
+    for v in range(scene.num_volumes):
+        mask = queued & (vol_of_ray == v)
+        use_slice = (not differentiable and v < len(slice_axes)
+                     and slice_axes[v] is not None
+                     and v < len(scene.vol_meta))
+        subs = _per_volume(scene.vol_subgrids, v)
+        isovals = tuple(float(x) for x in _per_volume(scene.vol_isovalues, v))
+        slcs = tuple(tuple(float(x) for x in pl)
+                     for pl in _per_volume(scene.vol_slices, v))
+        if use_slice:
+            axis, flip = slice_axes[v]
+            spacing = scene.vol_meta[v][1]     # static (sizes the ladder)
+            c2, w2, flags = sm.slice_march(
+                o_obj, d_obj, mask, color, w,
+                scene.vol_samples[v], scene.vol_color_lut[v],
+                scene.vol_opacity_lut[v],
+                axis=int(axis), flip=bool(flip),
+                step=float(scene.vol_step[v]),
+                base_step=float(min(spacing)),
+                low=scene.vol_vrange[v][0], high=scene.vol_vrange[v][1],
+                origin=scene.vol_origin[v], spacing=tuple(spacing),
+                isovalues=isovals, subgrids=subs, slices=slcs, impl=impl)
+        else:
+            c2, w2, flags = march_brick(
+                o_obj, d_obj, mask, color, w,
+                scene.vol_samples[v], scene.vol_origin[v],
+                scene.vol_spacing[v],
+                scene.vol_lo[v], scene.vol_hi[v],
+                scene.vol_color_lut[v], scene.vol_opacity_lut[v],
+                scene.vol_vrange[v],
+                scene.vol_step[v], scene.vol_max_steps[v],
+                subgrids=subs, isovalues=isovals, slices=slcs,
+                early_exit=not differentiable)
+        color = torch.where(mask[:, None], c2, color)
+        w = torch.where(mask, w2, w)
+        depth = torch.where(mask, flags, depth)
+
+    # marched rays leave their queue; `prev` remembers the brick for the
+    # shuffle's exclusion
+    return arena.replace(
+        color=color, w=w, depth=depth,
+        prev=torch.where(queued, arena.inst, arena.prev),
+        inst=torch.where(queued, -1, arena.inst),
+    )
+
+
+def shuffle_volume(scene: VolumeSceneData, arena: RayArena,
+                   fb: torch.Tensor):
+    """Phase 2: the volume flag protocol (DomainTracer.cpp:255-305)."""
+    pending = arena.active & (arena.inst < 0)
+    found, nxt, t_entry = _instance_bvh_hit(scene, arena, arena.prev)
+
+    depth = arena.depth
+    boundary = pending & ((depth & RAY_BOUNDARY) > 0)
+    # BOUNDARY + hit: clear flag, bump (1+eps)*t, queue next brick
+    requeue = boundary & found
+    eps1 = float(np.float32(1.0) + np.finfo(np.float32).eps)
+    origin = torch.where(
+        requeue[:, None],
+        arena.origin + arena.direction * (t_entry * eps1)[:, None],
+        arena.origin)
+    # BOUNDARY + miss: becomes EXTERNAL_BOUNDARY
+    external = boundary & ~found
+    depth = torch.where(boundary, depth & ~RAY_BOUNDARY, depth)
+    depth = torch.where(external, depth | RAY_EXTERNAL_BOUNDARY, depth)
+
+    inst = torch.where(requeue, nxt, arena.inst)
+
+    # PRIMARY with OPAQUE or EXTERNAL: deposit color*w, retire
+    is_primary = arena.type == int(VolumeRayType.PRIMARY)
+    done = pending & is_primary & (
+        (depth & (RAY_OPAQUE | RAY_EXTERNAL_BOUNDARY)) > 0)
+    fb = image_lib.local_add(fb, arena.id, arena.color * arena.w[:, None],
+                             torch.ones_like(arena.w), done)
+    retire = done | (pending & ~requeue & ~done)
+
+    return arena.replace(origin=origin, inst=inst, depth=depth,
+                         active=arena.active & ~retire), fb
+
+
+def _as_f64(x, device=None) -> torch.Tensor:
+    return torch.as_tensor(x).to(device=device, dtype=torch.float64)
+
+
+def _slice_gate(minv_list, directions) -> tuple:
+    """Object-space slice-path gate shared by can_slice_march /
+    slice_axes_for. slice_march marches OBJECT-space rays
+    (d_obj = inst_minv @ d), so the dominant-axis / conditioning checks
+    must run on d_obj: a rotated instance transform can drive the
+    object-space |d_axis| to ~0 while the world-space check passes, making
+    safe_inv blow up and the brick render empty. Requires, for EVERY
+    instance in minv_list:
+      - one common (axis, flip) chosen from the object-space mean,
+      - |d_obj_axis| >= MIN_AXIS_COMPONENT on the normalized direction
+        (plane parametrization well-conditioned),
+      - all d_obj[:, axis] sharing one sign consistent with the flip:
+        a ray opposing the flip would march the fixed ascending plane
+        ladder back-to-front and composite in the wrong order.
+    `directions` is an (N, 3) array or tensor of world directions; the
+    float64 reductions run where it lives and only their few results come
+    to the host. Returns (ok, axis, flip)."""
+    d = _as_f64(directions)
+    axis, flip = 0, False
+    for j, minv in enumerate(minv_list):
+        m3 = _as_f64(minv, d.device)[:3, :3]
+        d_obj = dot3(m3[None], d[:, None, :])
+        dn = d_obj / torch.clamp(
+            torch.linalg.norm(d_obj, dim=-1, keepdim=True), min=1e-30)
+        a, f = sm.choose_slice_axis(dn.mean(dim=0).cpu().numpy())
+        if j == 0:
+            axis, flip = a, f
+        elif (a, f) != (axis, flip):
+            return False, axis, flip
+        da = dn[:, axis]
+        amin, dmax, dmin = torch.stack(
+            [da.abs().min(), da.max(), da.min()]).tolist()
+        if amin < sm.MIN_AXIS_COMPONENT:
+            return False, axis, flip
+        if (dmax > 0.0) if flip else (dmin < 0.0):
+            return False, axis, flip
+    return True, axis, flip
+
+
+def _has_features(scene: VolumeSceneData, v: int) -> bool:
+    return bool(_per_volume(scene.vol_subgrids, v)
+                or _per_volume(scene.vol_isovalues, v)
+                or _per_volume(scene.vol_slices, v))
+
+
+def can_slice_march(scene: VolumeSceneData, directions) -> tuple:
+    """(ok, axis, flip): whether the slice-march fast path applies.
+
+    Requires one volume in one instance, any AMR/iso/slice feature only on
+    a brick within SLAB_BYTES (_features_on_slice_ok; larger featured
+    bricks keep the gather march), and every OBJECT-space ray within the
+    dominant-axis cone with one consistent sign (see _slice_gate).
+    """
+    if scene.num_volumes != 1 or scene.num_instances != 1:
+        return False, 0, False
+    if _has_features(scene, 0) and not _features_on_slice_ok(scene, 0):
+        return False, 0, False
+    if not scene.vol_meta:
+        return False, 0, False
+    return _slice_gate([scene.inst_minv[0]], directions)
+
+
+def _features_on_slice_ok(scene: VolumeSceneData, v: int) -> bool:
+    """Isosurfaces, AMR subgrids and slice planes run on the slice engine
+    only where the main brick PLUS any subgrids fit SLAB_BYTES, the size up
+    to which the engine marches a brick whole; bigger bricks keep the
+    gather march. The threshold decides which engine renders a featured
+    brick, and so the image, exactly as in the reference."""
+    nz, ny, nx = scene.vol_samples[v].shape[-3:]
+    total = nz * ny * nx * 4
+    for sub in _per_volume(scene.vol_subgrids, v):
+        sz, sy, sx = sub[0].shape[-3:]
+        total += sz * sy * sx * 4
+    return total <= sm.SLAB_BYTES
+
+
+def trace_volume_fast(scene: VolumeSceneData, rays: RayArena, width: int,
+                      height: int, axis: int | None = None,
+                      flip: bool | None = None,
+                      use_reference: bool = False, impl=None) -> torch.Tensor:
+    """Single-brick volume megapass: the whole frame in ONE slice-march
+    launch (ops/slice_march.py), the role ospTraceRays/GregSpray plays for
+    the reference (OSPRayAdapter.cpp:301).
+
+    Exactly the single-volume single-instance whole-film case: every camera
+    ray marches one brick and retires, so the wavefront loop is statically
+    known to run filter -> march -> deposit, and the round machinery
+    (arena, shuffle, flag protocol) drops out. Callers gate with
+    can_slice_march and fall back to trace_volume.
+
+    `rays` is the raw camera wavefront (make_arena not needed). axis/flip
+    override the dominant-axis choice (computed from the mean object-space
+    ray direction otherwise; pass them explicitly in frame loops).
+    impl="plain" runs the plain version (differentiable). use_reference=True
+    is the JAX package's spelling of the same choice, kept so that a call
+    written for either package reads alike; it selects nothing else.
+    """
+    if scene.num_volumes != 1 or scene.num_instances != 1:
+        raise ValueError("trace_volume_fast takes one volume in one instance")
+    if _has_features(scene, 0) and not _features_on_slice_ok(scene, 0):
+        raise ValueError("a featured brick over SLAB_BYTES takes the gather "
+                         "march (trace_volume)")
+    if impl not in (None, "plain"):
+        raise ValueError(f"impl must be None or 'plain', got {impl!r}")
+
+    if axis is None or flip is None:
+        # axis/flip come from the OBJECT-space mean (the frame slice_march
+        # actually marches in): see _slice_gate
+        d = _as_f64(rays.direction)
+        m3 = _as_f64(scene.inst_minv[0], d.device)[:3, :3]
+        axis, flip = sm.choose_slice_axis(
+            dot3(m3[None], d[:, None, :]).mean(dim=0).cpu().numpy())
+
+    origin, spacing, (low, high) = scene.vol_meta[0]
+    # object-space transform: broadcast-multiply + small-axis sums, NOT a
+    # matmul
+    minv = scene.inst_minv[0]
+    m3 = minv[:3, :3]
+    o_obj = dot3(m3[None, :, :], rays.origin[:, None, :]) + minv[:3, 3]
+    d_obj = dot3(m3[None, :, :], rays.direction[:, None, :])
+
+    n = rays.capacity
+    active = rays.active if rays.active.dtype == torch.bool \
+        else rays.active > 0
+    color, w, _flags = sm.slice_march(
+        o_obj, d_obj, active, rays.color, rays.w,
+        scene.vol_samples[0], scene.vol_color_lut[0],
+        scene.vol_opacity_lut[0],
+        axis=int(axis), flip=bool(flip), step=float(scene.vol_step[0]),
+        base_step=float(min(spacing)), low=low, high=high,
+        origin=tuple(origin), spacing=tuple(spacing),
+        isovalues=tuple(float(x) for x in _per_volume(scene.vol_isovalues,
+                                                      0)),
+        slices=tuple(tuple(float(x) for x in pl)
+                     for pl in _per_volume(scene.vol_slices, 0)),
+        subgrids=_per_volume(scene.vol_subgrids, 0),
+        impl="plain" if use_reference else impl)
+
+    # single brick: BOUNDARY rays have nowhere to requeue -> EXTERNAL ->
+    # every primary deposits color*w (shuffle_volume's retirement rule)
+    fb = image_lib.new_framebuffer(width, height, o_obj.device)
+    contrib = color * w[:, None]
+    if n == width * height:
+        # dense whole-film deposit: lane i == pixel i (camera lane order)
+        fb = fb + torch.cat([contrib, torch.ones_like(w)[:, None]], dim=1)
+    else:
+        fb = image_lib.local_add(fb, rays.id, contrib, torch.ones_like(w),
+                                 active)
+    return image_lib.clamp_rgb(fb)
+
+
+def slice_axes_for(scene: VolumeSceneData, directions) -> tuple:
+    """Per-volume (axis, flip) | None tuple for march_round's slice_axes: a
+    volume qualifies when its AMR/iso/slice features (if any) fit the slice
+    engine and every OBJECT-space ray, for EVERY instance referencing it,
+    passes the dominant-axis gate (_slice_gate). Computed once per camera.
+    The stacked per-device scene of the volume-domain scheduler is not
+    ported yet."""
+    if not scene.vol_meta:
+        return ()
+    if scene.inst_minv.ndim == 4:
+        raise NotImplementedError(
+            "stacked per-device volume scenes come with the schedulers "
+            "(ROADMAP slice D)")
+    iv = scene.inst_vol.cpu().numpy()
+    out = []
+    for v in range(scene.num_volumes):
+        if _has_features(scene, v) and not _features_on_slice_ok(scene, v):
+            out.append(None)
+            continue
+        minvs = [scene.inst_minv[i] for i in np.nonzero(iv == v)[0]]
+        ok, axis, flip = _slice_gate(minvs, directions) if minvs \
+            else (False, 0, False)
+        out.append((axis, flip) if ok else None)
+    return tuple(out)
+
+
+def trace_volume(scene: VolumeSceneData, arena: RayArena, width: int,
+                 height: int, max_rounds: int = 64,
+                 unroll: bool = False, slice_axes: tuple = (),
+                 impl=None) -> torch.Tensor:
+    """The wavefront volume tracer: filter, then rounds of march_round and
+    shuffle_volume until no ray is queued (one host sync per round asks).
+    unroll=True is the gradient path: exactly max_rounds rounds, the gather
+    march without early exit, no data-dependent control flow."""
+    fb = image_lib.new_framebuffer(width, height, arena.origin.device)
+    arena = filter_initial(scene, arena)
+    for _ in range(max_rounds):
+        if not unroll and not bool(
+                (arena.active & (arena.inst >= 0)).any()):
+            break
+        arena = march_round(scene, arena, differentiable=unroll,
+                            slice_axes=slice_axes, impl=impl)
+        arena, fb = shuffle_volume(scene, arena, fb)
+    return fb

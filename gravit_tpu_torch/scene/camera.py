@@ -13,7 +13,8 @@ import dataclasses
 import torch
 
 from gravit_tpu_torch.core.math3d import cross3, norm3
-from gravit_tpu_torch.core.rays import FLT_MAX, RayArena, RayType
+from gravit_tpu_torch.core.rays import (FLT_MAX, RayArena, RayType,
+                                        VolumeRayType)
 from gravit_tpu_torch.device import resolve_device
 
 
@@ -50,14 +51,16 @@ class PerspectiveCamera:
         v = v / norm3(v)
         return u, v, w
 
-    def generate_rays(self, device=None) -> RayArena:
+    def generate_rays(self, device=None, volume: bool = False) -> RayArena:
         """Whole-film primary ray wavefront (gvtCamera.cpp:233-312).
 
         Pixel NDC uses the W-1/H-1 convention (x0 = i*2/(W-1) - 1); the
         multi-jitter offset for sub-sample (k, s) is
         (s - half) * jitter_window / samples. `id` is the PIXEL index
         (j*W + i), shared by all samples of a pixel. Lanes run in
-        ((j*W+i)*S+k)*S+s order.
+        ((j*W+i)*S+k)*S+s order. Volume rays start with w = 0 (w
+        accumulates opacity), depth = 0 (depth holds the termination flags)
+        and VolumeRayType.PRIMARY (gvtCamera.cpp:293-299).
         """
         device = resolve_device(device)
         W, H, S = self.film_width, self.film_height, self.samples
@@ -92,10 +95,11 @@ class PerspectiveCamera:
             color=torch.zeros((n, 3), **f32),
             t_max=torch.full((n,), FLT_MAX, **f32),
             t=torch.full((n,), FLT_MAX, **f32),
-            w=torch.full((n,), 1.0 / float(S * S), **f32),
+            w=torch.full((n,), 0.0 if volume else 1.0 / float(S * S), **f32),
             id=(j * W + i).reshape(n).to(torch.int32),
-            depth=torch.full((n,), self.max_depth, **i32),
-            type=torch.full((n,), int(RayType.PRIMARY), **i32),
+            depth=torch.full((n,), 0 if volume else self.max_depth, **i32),
+            type=torch.full((n,), int(VolumeRayType.PRIMARY if volume
+                                      else RayType.PRIMARY), **i32),
             inst=torch.full((n,), -1, **i32),
             prev=torch.full((n,), -1, **i32),
             active=torch.ones((n,), dtype=torch.bool, device=device),
