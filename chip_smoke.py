@@ -7,18 +7,26 @@ Phases (one JSON line each; any failure exits nonzero). The surface path:
   1 environment  torch / CUDA versions, the card's name and power limit
   2 build        nvcc builds every kernel from csrc/, all sources at once
                  (seconds, ptxas report)
-  3 K1           closest-hit traversal vs the plain version on the first
-                 generation's object-space wavefront of the 512^2 frame
-  4 K2           any-hit traversal vs the plain version on the depth-1
-                 shadow-spawn matrix
+  3 K1           closest-hit traversal (a vote per warp) vs the plain
+                 version with the packet-wide vote, and vs the plain version
+                 at the kernel's own group width (counts equal too), on the
+                 object-space wavefronts of the 512^2 frame: the camera
+                 rays, and the bounced rays of the depth-2 frame
+  4 K2           any-hit traversal vs the plain versions on the shadow-spawn
+                 matrices of the depth-1 and the depth-2 frame
   5 K3           a triangle table over 6 MB (the TPU kernel's HBM variant),
                  and one frame over it through render_surface
   6 frames       render_surface at depth 1 and 2 on the card, launch counts,
                  each frame against its impl="plain" twin
   7 golden       64^2 frames against the JAX package's committed frames
   8 times        CUDA-event times of every launch of the depth-1 and
-                 depth-2 frames and of the K3 subset (with bounds), of the
-                 plain version, and of the frames
+                 depth-2 frames and of the K3 subset, each with its bound
+                 (from the work the rays need on their own; the packet-wide
+                 walk's work beside it) and its shape (visits per voting
+                 group, blocks per SM, waves, the longest walk by the
+                 kernel's own clock), of the plain version, and of the
+                 frames (eager, the host's enqueue time and launch counts,
+                 and replayed from a CUDA graph)
 The volume path (scenes: `make_volume_scene`, the volume bench configuration
 of bench_inner.py:208-229 on the procedural wavelet brick):
   hold_K4 x4     the whole-brick slice kernel vs its plain version on the
@@ -262,6 +270,42 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def graph_ms(fn, reps: int = 20) -> tuple:
+    """(ms per replay, replay == eager) of fn() captured once in a CUDA
+    graph: the frame's device time when no host enqueue paces it. A
+    measurement only; the port's entry points run eagerly."""
+    eager = fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):       # warm-up off the default stream
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return cuda_ms(graph.replay, reps=reps), bool(torch.equal(out, eager))
+
+
+def host_counts(fn, reps: int = 2) -> dict:
+    """What the host does per fn(): PyTorch operator calls and kernel
+    launches, counted by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    counts = {e.key: e.count for e in prof.key_averages()}
+    return dict(
+        aten_ops=sum(c for k, c in counts.items()
+                     if k.startswith("aten::")) / reps,
+        kernel_launches=counts.get("cudaLaunchKernel", 0) / reps)
+
+
 def capture_launches(fn) -> list:
     """Run fn() and return a copy of the inputs of every traversal-kernel
     launch it made (the shapes the main path gives the kernel)."""
@@ -282,27 +326,100 @@ def capture_launches(fn) -> list:
     return seen
 
 
-def bound_ms(args, res) -> tuple:
+def bound_ms(args, res, packet_visits: int, packet_rows: int) -> dict:
     """Least time the card could take for this launch's work: the larger
     of its fp32 operations over the fp32 peak and its bytes (rays in, hits
-    out, tables once) over the memory rate."""
+    out, tables once) over the memory rate. The operations are what the
+    rays need on their own, whatever group they are walked in: a root test
+    per live lane, two node tests per inner node a lane's own slab test
+    passed, the rows of every leaf its own test passed (the kernel counts
+    them). `packet_bound_ms` counts instead what the packet-wide walk
+    does: every node and row the packet entered, times its 1024 lanes."""
     o, d, valid, block_root, bounds, meta, tri, t_far = args[:8]
-    flops = (NODE_FLOPS * int(res.node_visits.sum())
-             + TRI_FLOPS * int(res.tri_rows.sum())) * 1024
+    flops = (NODE_FLOPS * int(res.lane_node_tests.sum())
+             + TRI_FLOPS * int(res.lane_tri_rows.sum()))
+    packet_flops = (NODE_FLOPS * packet_visits
+                    + TRI_FLOPS * packet_rows) * bt.PACKET
     n = o.shape[0]
     nbytes = (sum(x.numel() * x.element_size() for x in
                   (o, d, valid, block_root, bounds, meta, tri, t_far))
               + n * 16)
     t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
-            else "bytes", flops, nbytes)
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                flops=flops, bytes=nbytes,
+                packet_bound_ms=max(packet_flops / PEAK_FP32 * 1e3, t_bytes),
+                packet_flops=packet_flops)
+
+
+def launch_shape(res, occupancy: dict) -> dict:
+    """How a traversal launch sat on the card: visits per voting group
+    (over the groups that walked), the blocks launched and walking,
+    resident blocks per SM, the waves the launch needs; and from the
+    kernel's own clock the longest walk (when it began after the first one,
+    how long it took, its visits and rows), the span from the first
+    beginning to the last end, and all walks' time spread evenly over the
+    resident warps (what the launch would take if no walk were longer than
+    another)."""
+    visits = res.node_visits.float()
+    walking = visits > 0
+    per_block = occupancy["block_threads"] // res.group
+    blocks = visits.numel() // per_block
+    resident = occupancy["blocks_per_sm"] * occupancy["sms"]
+    ns = res.walk_ns.double()
+    # began_ns is the card's clock modulo 2^30 ns: unwrap around one walk
+    began = (res.began_ns.double() - float(res.began_ns[walking][0])) % 2.0**30
+    began = torch.where(began >= 2.0**29, began - 2.0**30, began)
+    began = torch.where(walking, began - began[walking].min(), 0.0)
+    longest = int(ns.argmax())
+    clock = dict(
+        longest_walk_us=float(ns[longest]) / 1e3,
+        longest_walk_began_us=float(began[longest]) / 1e3,
+        longest_walk_visits=int(res.node_visits[longest]),
+        longest_walk_rows=int(res.tri_rows[longest]),
+        span_us=float((began + ns)[walking].max()) / 1e3,
+        even_us=float(ns.sum()) / (resident * per_block) / 1e3)
+    return dict(
+        **clock,
+        group=res.group, groups=int(visits.numel()),
+        groups_walking=int(walking.sum()),
+        visits_per_group_mean=float(visits[walking].mean()),
+        visits_per_group_max=int(visits.max()),
+        rows_per_group_max=int(res.tri_rows.max()),
+        blocks=blocks,
+        blocks_walking=int(walking.reshape(blocks, per_block).any(dim=1).sum()),
+        waves=blocks / resident, **occupancy)
+
+
+def _disagreement(k, p, live, any_hit: bool) -> tuple:
+    """(ok, max_abs_err, counts) of one traversal result against another.
+    Closest hit: prim must be identical apart from equal-t ties, and t/u/v
+    bit-equal where prim agrees (both compute the same IEEE operations in
+    the same order). Any hit: the occluded flags (prim >= 0) must be
+    identical."""
+    if any_hit:
+        diff = ((k.prim >= 0) != (p.prim >= 0)) & live
+        return (not bool(diff.any()), float(diff.any()),
+                dict(occluded=int(((k.prim >= 0) & live).sum()),
+                     flag_mismatches=int(diff.sum())))
+    same = k.prim == p.prim
+    mism = ~same & live
+    ties = mism & (k.t == p.t)
+    err = max(float((k.t - p.t)[same].abs().max()),
+              float((k.u - p.u)[same].abs().max()),
+              float((k.v - p.v)[same].abs().max()))
+    return (not bool((mism & ~ties).any()) and err == 0.0, err,
+            dict(hits=int(((k.prim >= 0) & live).sum()),
+                 tie_lanes=int(ties.sum()),
+                 non_tie_mismatches=int((mism & ~ties).sum())))
 
 
 def hold_traversal(args, name: str) -> dict:
-    """Kernel vs plain version on the same inputs. Closest hit: prim must
-    be identical apart from equal-t ties, and t/u/v bit-equal where prim
-    agrees (both compute the same IEEE operations in the same order).
-    Any hit: the occluded flags (prim >= 0) must be identical."""
+    """The kernel (a vote per warp) against the plain version on the same
+    inputs, twice. Against the packet-wide vote, the TPU kernel's walk:
+    this decides whether the warp walk computes the same function on these
+    rays. And against the plain version at the kernel's own group width,
+    where the four counts of every group must be equal as well."""
     any_hit = args[8]
     k = bt.bvh_intersect_kernel(*args)
     torch.cuda.synchronize()
@@ -310,33 +427,28 @@ def hold_traversal(args, name: str) -> dict:
     p = bt.bvh_intersect_plain(*args)
     torch.cuda.synchronize()
     plain_s = time.time() - t0
+    g = bt.bvh_intersect_plain(*args, group=k.group)
     live = args[2] != 0
-    if any_hit:
-        diff = ((k.prim >= 0) != (p.prim >= 0)) & live
-        err = float(diff.any())
-        ok = not bool(diff.any())
-        extra = dict(occluded=int(((k.prim >= 0) & live).sum()),
-                     flag_mismatches=int(diff.sum()))
-    else:
-        same = k.prim == p.prim
-        mism = ~same & live
-        ties = mism & (k.t == p.t)
-        err = max(float((k.t - p.t)[same].abs().max()),
-                  float((k.u - p.u)[same].abs().max()),
-                  float((k.v - p.v)[same].abs().max()))
-        ok = not bool((mism & ~ties).any()) and err == 0.0
-        extra = dict(hits=int(((k.prim >= 0) & live).sum()),
-                     tie_lanes=int(ties.sum()),
-                     non_tie_mismatches=int((mism & ~ties).sum()))
+    ok, err, extra = _disagreement(k, p, live, any_hit)
+    ok_g, err_g, extra_g = _disagreement(k, g, live, any_hit)
+    counts_equal = all(
+        torch.equal(getattr(k, f), getattr(g, f)) for f in
+        ("node_visits", "tri_rows", "lane_node_tests", "lane_tri_rows"))
     rec = dict(kernel=name, rays=int(args[0].shape[0]),
                blocks=int(args[3].numel()),
                live_blocks=int((args[3] >= 0).sum()),
-               node_visits=[int(k.node_visits.sum()),
-                            int(p.node_visits.sum())],
-               tri_rows=[int(k.tri_rows.sum()), int(p.tri_rows.sum())],
-               max_abs_err=err, plain_s=plain_s, ok=ok, **extra)
+               walk=dict(group=k.group, node_visits=int(k.node_visits.sum()),
+                         tri_rows=int(k.tri_rows.sum()),
+                         lane_node_tests=int(k.lane_node_tests.sum()),
+                         lane_tri_rows=int(k.lane_tri_rows.sum())),
+               packet_walk=dict(group=p.group,
+                                node_visits=int(p.node_visits.sum()),
+                                tri_rows=int(p.tri_rows.sum())),
+               max_abs_err=max(err, err_g), plain_s=plain_s,
+               vs_same_group=dict(counts_equal=counts_equal, **extra_g),
+               ok=ok and ok_g and counts_equal, **extra)
     log("hold_" + name, **rec)
-    if not ok:
+    if not rec["ok"]:
         raise SystemExit(f"{name}: kernel disagrees with the plain version")
     return rec
 
@@ -759,7 +871,8 @@ def main() -> int:
     # sphere's shadow, reached by bounces); the depth-1 one hardly any
     k1g1_args = [a for a in cap[2] if not a[8]][1]
     k2d2_args = next(a for a in cap[2] if a[8])
-    hold_traversal(k2d2_args, "K2_depth2")
+    k1g1 = hold_traversal(k1g1_args, "K1_gen1")
+    k2d2 = hold_traversal(k2d2_args, "K2_depth2")
     del cap
 
     # ---- 5: K3, a triangle table over 6 MB (subset of blocks) -----------
@@ -849,19 +962,24 @@ def main() -> int:
     # timed alone at its own inputs, with its bound from this run's visit
     # counts
     launch = {}
-    for name, args in (("K1_gen0", k1_args), ("K1_gen1", k1g1_args),
-                       ("K2_depth1", k2_args), ("K2_depth2", k2d2_args),
-                       ("K3_subset", k3_args)):
+    occupancy = bt.kernel_occupancy()
+    for name, args, held in (
+            ("K1_gen0", k1_args, k1), ("K1_gen1", k1g1_args, k1g1),
+            ("K2_depth1", k2_args, k2), ("K2_depth2", k2d2_args, k2d2),
+            ("K3_subset", k3_args, k3)):
         res = bt.bvh_intersect_kernel(*args)
         ms = cuda_ms(lambda: bt.bvh_intersect_kernel(*args), reps=20)
-        b_ms, b_by, flops, nbytes = bound_ms(args, res)
+        bound = bound_ms(args, res, held["packet_walk"]["node_visits"],
+                         held["packet_walk"]["tri_rows"])
         launch[name] = dict(
-            ms=ms, bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms,
-            flops=flops, bytes=nbytes, rays=int(args[0].shape[0]),
-            live_blocks=int((args[3] >= 0).sum()),
-            node_visits=int(res.node_visits.sum()),
-            tri_rows=int(res.tri_rows.sum()))
+            ms=ms, share_of_bound=bound["bound_ms"] / ms,
+            share_of_packet_bound=bound["packet_bound_ms"] / ms, **bound,
+            rays=int(args[0].shape[0]),
+            live_blocks=int((args[3] >= 0).sum()), **held["walk"])
         log("time_launch", launch=name, card=card, **launch[name])
+        log("launch_shape", launch=name, **launch_shape(res, occupancy))
+        if not bound["bound_ms"] <= ms:
+            raise SystemExit(f"{name}: faster than its bound")
     plain_ms = {name: cuda_ms(lambda: bt.bvh_intersect_plain(*args), reps=1,
                               warmup=0)
                 for name, args in (("K1_gen0", k1_args),
@@ -869,29 +987,40 @@ def main() -> int:
                                    ("K3_subset", k3_args))}
     log("time_plain", card=card, **plain_ms)
     # a frame's device time against its launches (the rest is PyTorch glue
-    # and any wait on the host); host_ms is the wall clock per frame
+    # and any wait on the host); host_ms is the wall clock per frame and
+    # enqueue_ms the part of it before the host waits for the card;
+    # graph_ms is the frame replayed from a CUDA graph (no host pacing)
     in_frame = {1: ("K1_gen0", "K2_depth1"),
                 2: ("K1_gen0", "K1_gen1", "K2_depth2")}
     for depth in (1, 2):
-        ms = cuda_ms(lambda: trace_image_fast(scene, rays[depth], W, H,
-                                              accel=accel, max_depth=depth),
-                     reps=10)
+        def frame():
+            return trace_image_fast(scene, rays[depth], W, H, accel=accel,
+                                    max_depth=depth)
+
+        ms = cuda_ms(frame, reps=10)
         t0 = time.perf_counter()
         for _ in range(5):
-            trace_image_fast(scene, rays[depth], W, H, accel=accel,
-                             max_depth=depth)
+            frame()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3 / 5
         torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / 5
         kernel_ms = sum(launch[k]["ms"] for k in in_frame[depth])
-        log("time_frame", depth=depth, card=card, ms=ms,
-            host_ms=(time.perf_counter() - t0) * 1e3 / 5,
-            kernel_ms=kernel_ms, kernel_share=kernel_ms / ms,
-            rays_per_s=W * H / ms * 1e3)
+        replay_ms, replay_equal = graph_ms(frame)
+        log("time_frame", depth=depth, card=card, ms=ms, host_ms=host_ms,
+            enqueue_ms=enqueue_ms, kernel_ms=kernel_ms,
+            kernel_share=kernel_ms / ms, rays_per_s=W * H / ms * 1e3,
+            graph_ms=replay_ms, graph_equals_eager=replay_equal,
+            kernel_share_of_graph=kernel_ms / replay_ms,
+            **host_counts(frame))
+        if not replay_equal:
+            raise SystemExit(f"depth {depth}: the graph replay differs")
     kernel_rows = [dict(
         name=name, route="cuda", source="gravit_tpu_torch/csrc/bvh_traverse.cu",
         replaces="gravit_tpu/ops/pallas_bvh.py:35", launches=launches,
         max_abs_err=rec["max_abs_err"], ms=launch[key]["ms"],
         plain_ms=plain_ms[key], bound_ms=launch[key]["bound_ms"],
-        bound_by=launch[key]["bound_by"], library_ms=None)
+        bound_by=launch[key]["bound_by"], library_ms=None,
+        packet_bound_ms=launch[key]["packet_bound_ms"])
         for name, key, rec, launches in (
             ("bvh_traverse (closest hit, K1)", "K1_gen0", k1,
              main_counts["closest"]),

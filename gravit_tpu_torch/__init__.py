@@ -7,8 +7,8 @@ needs is copied, not shared.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; with no
 device given and no CUDA present they raise (see `device.resolve_device`).
-The one hand-written kernel (`csrc/bvh_traverse.cu`) is built with nvcc at
-first use; on CPU tensors its plain PyTorch twin runs instead.
+The hand-written kernels (`csrc/*.cu`) are built with nvcc at first use; on
+CPU tensors a kernel's plain PyTorch version runs instead.
 """
 
 from gravit_tpu_torch.device import resolve_device

@@ -2,23 +2,45 @@
 its plain PyTorch version.
 
 Replaces gravit_tpu/ops/pallas_bvh.py::_traverse_kernel in its closest-hit
-(K1), any-hit (K2) and table-in-HBM (K3) forms with one CUDA kernel,
-`csrc/bvh_traverse.cu`. Its roofline bound on the card is fp32 arithmetic
-on node and triangle tests (the tables are read at one address per block,
-broadcasts served from L1/L2); this first version is latency-bound, at ~3%
-of that bound (PERF.md). The 6 MB VMEM split of the TPU kernel has no
+(K1), any-hit (K2) and table-in-HBM (K3) forms with one CUDA source,
+`csrc/bvh_traverse.cu`. The 6 MB VMEM split of the TPU kernel has no
 counterpart: the table always lives in global memory.
 
-A block of PACKET=1024 rays traverses the BVH together with one shared
-stack: a node is entered iff ANY live lane passes its slab test, the near
-child (by the sign of the block's summed direction on the split axis) is
-popped first, and every live lane tests every leaf the block enters. Those
-packet rules decide which of two equal-t hits wins, so the kernel and the
-plain version keep them exactly.
+The function. A PACKET of 1024 consecutive rays shares one traversal
+ORDER: at every inner node the near child, by the sign of the packet's
+summed direction on the node's split axis, is visited first, so the leaves
+can be met in one fixed depth-first order per packet. A ray's answer is the
+first closest hit along that order: a later leaf must be strictly closer,
+and inside a chunk of LEAF_PAD rows the smallest row wins a tie.
+
+The voting group. Which nodes of that order are entered is decided by a
+vote: a node is entered iff ANY live lane of the group passes its slab
+test, and every live lane of the group tests every leaf the group enters.
+The TPU kernel votes over the whole packet (`group=PACKET`). The CUDA
+kernel votes over a warp (`group=GROUP`, 32 consecutive lanes), with the
+PACKET's direction signs. That is the same function: a leaf in which a lane
+hits nothing closer leaves its answer alone, and a lane can only hit inside
+boxes its own slab test passes, so a smaller group that walks the same
+order skips only leaves that could not change its lanes' answers. (In
+float32 a hit exactly on a box face could be rejected by the lane's own
+slab test and saved by a neighbour's vote:
+tests/test_torch_bvh_groups.py shows it for rays aimed at vertices, and
+`chip_smoke.py` holds the kernel against the packet-wide plain version on
+every launch of the frames and counts such lanes.) What is NOT the same function: taking the
+direction signs from the group, or regrouping rays across packets.
+
+What bounds it on the card: by the roofline, the rays in and the hits out
+(the fp32 arithmetic of the node and triangle tests the rays need is
+smaller still; tables are read at one address per warp, broadcasts served
+from L1/L2). What a launch really waits for is its longest walk, a chain of
+dependent steps, so the design lets warps walk independently (no block-wide
+barrier, many small blocks per SM) and keeps each step short (see the
+source's note; PERF.md has the times). `Traversal` carries the counts a
+bound needs (what the lanes' own tests pass) and the card's clock per walk.
 
 `bvh_intersect` runs the plain version only for CPU tensors; for CUDA
 tensors it launches the kernel or raises. `impl="plain"` runs the plain
-version on the card explicitly (for comparisons).
+version (the packet-wide vote) on the card explicitly, for comparisons.
 """
 
 from __future__ import annotations
@@ -31,7 +53,8 @@ import torch
 from gravit_tpu_torch.core.rays import FLT_MAX
 from gravit_tpu_torch.ops import _build
 
-PACKET = 1024         # rays per block (one thread each)
+PACKET = 1024         # rays that share one traversal order
+GROUP = 32            # the CUDA kernel's voting group: one warp
 STACK_DEPTH = 96
 LEAF_PAD = 8          # leaf triangle rows are tested 8 at a time
 BIG = 1e30
@@ -49,15 +72,26 @@ def reset_launch_counts() -> None:
 
 
 class Traversal(NamedTuple):
-    """Raw traversal output: misses keep prim == -1 and t == their t_far."""
+    """Raw traversal output: misses keep prim == -1 and t == their t_far.
+    The four counts are per voting group of `group` lanes."""
 
     t: torch.Tensor            # (N,) f32
     prim: torch.Tensor         # (N,) i32, LEAF order
     u: torch.Tensor            # (N,) f32
     v: torch.Tensor            # (N,) f32
-    node_visits: torch.Tensor  # (N//PACKET,) i32 nodes popped per block
-    tri_rows: torch.Tensor     # (N//PACKET,) i32 triangle rows tested per
-                               # block, each against all PACKET lanes
+    node_visits: torch.Tensor  # (N//group,) i32 nodes the group popped
+    tri_rows: torch.Tensor     # (N//group,) i32 triangle rows the group
+                               # tested, each against all its lanes
+    lane_node_tests: torch.Tensor  # (N//group,) i32 node tests its live
+                               # lanes need on their own: the root, and two
+                               # per inner node a lane's own test passed
+    lane_tri_rows: torch.Tensor    # (N//group,) i32 rows of the leaves a
+                               # lane's own test passed, summed over lanes
+    group: int                 # lanes per voting group
+    walk_ns: torch.Tensor      # (N//group,) i32 how long the group's walk
+                               # took on the card, and
+    began_ns: torch.Tensor     # when it began (the card's clock modulo
+                               # 2^30 ns); zeros from the plain version
 
 
 def _safe_inv(x: torch.Tensor) -> torch.Tensor:
@@ -90,39 +124,52 @@ def _check(o, d, valid, block_root, bounds, meta, tri, t_far) -> None:
 
 
 def bvh_intersect_plain(o, d, valid, block_root, bounds, meta, tri, t_far,
-                       any_hit: bool = False) -> Traversal:
-    """The kernel's traversal vectorized over blocks: a per-block stack
-    `(nb, STACK_DEPTH)`, a stack pointer and a node-visit count per block,
-    and a Python loop until every block is done. Same arithmetic, in the
-    same order, as the kernel."""
+                       any_hit: bool = False, group: int = PACKET) -> Traversal:
+    """The traversal vectorized over voting groups of `group` consecutive
+    lanes: a stack `(ng, STACK_DEPTH)`, a stack pointer and a visit count
+    per group, and a Python loop until every group is done. Same
+    arithmetic, in the same order, as the kernel. `group=PACKET` is the
+    TPU kernel's walk (one vote per packet), `group=GROUP` the CUDA
+    kernel's (one vote per warp); both take the near child from the
+    PACKET's summed direction, so both visit leaves in one order."""
     _check(o, d, valid, block_root, bounds, meta, tri, t_far)
+    if group < 1 or PACKET % group:
+        raise ValueError(f"group must divide {PACKET}, got {group}")
     n = o.shape[0]
     nb = n // PACKET
+    ng = n // group
+    per_packet = PACKET // group
     dev = o.device
-    f32, i64 = torch.float32, torch.int64
-    oc = [o[:, c].reshape(nb, PACKET) for c in range(3)]
-    dc = [d[:, c].reshape(nb, PACKET) for c in range(3)]
+    f32, i64, i32 = torch.float32, torch.int64, torch.int32
+    oc = [o[:, c].reshape(ng, group) for c in range(3)]
+    dc = [d[:, c].reshape(ng, group) for c in range(3)]
     inv = [_safe_inv(x) for x in dc]
-    live0 = valid.reshape(nb, PACKET) != 0
-    dpos = torch.stack([x.sum(dim=1) >= 0.0 for x in dc], dim=1)   # (nb, 3)
+    live0 = valid.reshape(ng, group) != 0
+    dpos = torch.stack([d[:, c].reshape(nb, PACKET).sum(dim=1) >= 0.0
+                        for c in range(3)], dim=1)                # (nb, 3)
+    dpos = dpos.repeat_interleave(per_packet, dim=0)              # (ng, 3)
 
-    tb = t_far.reshape(nb, PACKET).clone()
-    prim = torch.full((nb, PACKET), -1, dtype=torch.int32, device=dev)
-    uu = torch.zeros((nb, PACKET), dtype=f32, device=dev)
-    vv = torch.zeros((nb, PACKET), dtype=f32, device=dev)
+    tb = t_far.reshape(ng, group).clone()
+    prim = torch.full((ng, group), -1, dtype=i32, device=dev)
+    uu = torch.zeros((ng, group), dtype=f32, device=dev)
+    vv = torch.zeros((ng, group), dtype=f32, device=dev)
 
-    root = block_root.to(i64)
-    stack = torch.zeros((nb, STACK_DEPTH), dtype=i64, device=dev)
+    root = block_root.to(i64).repeat_interleave(per_packet)
+    # a group with no live lane has nothing to find and leaves at once
+    walks = (root >= 0) & live0.any(dim=1)
+    stack = torch.zeros((ng, STACK_DEPTH), dtype=i64, device=dev)
     stack[:, 0] = root
-    sp = torch.ones((nb,), dtype=i64, device=dev)
-    visits = torch.zeros((nb,), dtype=torch.int32, device=dev)
-    rows_tested = torch.zeros((nb,), dtype=torch.int32, device=dev)
+    sp = torch.ones((ng,), dtype=i64, device=dev)
+    visits = torch.zeros((ng,), dtype=i32, device=dev)
+    rows_tested = torch.zeros((ng,), dtype=i32, device=dev)
+    own_nodes = (live0 & walks[:, None]).sum(dim=1).to(i32)   # the root test
+    own_rows = torch.zeros((ng,), dtype=i32, device=dev)
     meta64 = meta.to(i64)
     cap = 4 * bounds.shape[0] + 64
     kidx = torch.arange(LEAF_PAD, dtype=i64, device=dev)
 
     while True:
-        go = (root >= 0) & (visits < cap) & (sp > 0)
+        go = walks & (visits < cap) & (sp > 0)
         if any_hit:
             go = go & (live0 & (prim < 0)).any(dim=1)
         act = go.nonzero().squeeze(1)
@@ -134,8 +181,8 @@ def bvh_intersect_plain(o, d, valid, block_root, bounds, meta, tri, t_far,
         bnd = bounds[node]
         o_a = [x[act] for x in oc]
         inv_a = [x[act] for x in inv]
-        tn = torch.full((act.numel(), PACKET), -BIG, dtype=f32, device=dev)
-        tf = torch.full((act.numel(), PACKET), BIG, dtype=f32, device=dev)
+        tn = torch.full((act.numel(), group), -BIG, dtype=f32, device=dev)
+        tf = torch.full((act.numel(), group), BIG, dtype=f32, device=dev)
         for ax in range(3):
             a = (bnd[:, ax, None] - o_a[ax]) * inv_a[ax]
             b = (bnd[:, ax + 3, None] - o_a[ax]) * inv_a[ax]
@@ -143,6 +190,7 @@ def bvh_intersect_plain(o, d, valid, block_root, bounds, meta, tri, t_far,
             tf = torch.minimum(tf, torch.maximum(a, b))
         node_hit = live0[act] & (tf >= tn) & (tn < tb[act]) & (tf > 1e-6)
         enter = node_hit.any(dim=1)
+        passed = node_hit.sum(dim=1).to(i32)
         m = meta64[node]
         is_leaf = m[:, 2] > 0
 
@@ -155,19 +203,24 @@ def bvh_intersect_plain(o, d, valid, block_root, bounds, meta, tri, t_far,
             stack[ia, s] = torch.where(left_first, mi[:, 1], mi[:, 0])
             stack[ia, s + 1] = torch.where(left_first, mi[:, 0], mi[:, 1])
             spa = torch.where(inner, spa + 2, spa)
+            own_nodes[ia] += 2 * passed[inner]
 
         leaf = enter & is_leaf
         if bool(leaf.any()):
             la = act[leaf]
-            rows_tested[la] += m[leaf, 1].to(torch.int32)
+            count = m[leaf, 1].to(i32)
+            rows_tested[la] += count
+            own_rows[la] += count * passed[leaf]
             tb[la], prim[la], uu[la], vv[la] = _leaf_tests(
                 [x[la] for x in oc], [x[la] for x in dc], live0[la],
                 m[leaf, 0], m[leaf, 1], tri, kidx,
                 tb[la], prim[la], uu[la], vv[la])
         sp[act] = torch.clamp(spa, max=STACK_DEPTH - 2)
 
+    untimed = torch.zeros((ng,), dtype=i32, device=dev)
     return Traversal(tb.reshape(n), prim.reshape(n), uu.reshape(n),
-                     vv.reshape(n), visits, rows_tested)
+                     vv.reshape(n), visits, rows_tested, own_nodes,
+                     own_rows, group, untimed, untimed)
 
 
 def _leaf_tests(o, d, live, start, count, tri, kidx, tb, prim, uu, vv):
@@ -220,22 +273,43 @@ def _leaf_tests(o, d, live, start, count, tri, kidx, tb, prim, uu, vv):
 
 
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
-             + [ctypes.c_void_p] * 6)
+             + [ctypes.c_void_p] * 7)
 
 
 def _library() -> ctypes.CDLL:
     lib = _build.load("bvh_traverse")
     lib.bvh_traverse_launch.argtypes = _ARGTYPES
     lib.bvh_traverse_launch.restype = ctypes.c_int
+    lib.bvh_traverse_occupancy.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+    lib.bvh_traverse_occupancy.restype = ctypes.c_int
     lib.bvh_traverse_error_string.argtypes = [ctypes.c_int]
     lib.bvh_traverse_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def _raise_if(lib, err: int, what: str) -> None:
+    if err:
+        msg = lib.bvh_traverse_error_string(err).decode()
+        raise RuntimeError(f"bvh_traverse {what} failed: {msg} ({err})")
+
+
+def kernel_occupancy() -> dict:
+    """How the traversal kernel sits on the current card: threads per
+    block, resident blocks per SM (by registers and shared memory, from the
+    CUDA runtime) and the number of SMs."""
+    lib = _library()
+    vals = [ctypes.c_int() for _ in range(3)]
+    _raise_if(lib, lib.bvh_traverse_occupancy(*map(ctypes.byref, vals)),
+              "occupancy query")
+    threads, blocks_per_sm, sms = (v.value for v in vals)
+    return dict(block_threads=threads, blocks_per_sm=blocks_per_sm, sms=sms)
+
+
 def bvh_intersect_kernel(o, d, valid, block_root, bounds, meta, tri, t_far,
                         any_hit: bool = False) -> Traversal:
-    """Launch `csrc/bvh_traverse.cu` on the current stream; raises if the
-    launch is refused. CUDA tensors only."""
+    """Launch `csrc/bvh_traverse.cu` on the current stream (the packets'
+    direction signs, then the traversal); raises if the launch is refused.
+    CUDA tensors only."""
     global launches_closest, launches_any_hit
     _check(o, d, valid, block_root, bounds, meta, tri, t_far)
     if o.device.type != "cuda":
@@ -247,24 +321,24 @@ def bvh_intersect_kernel(o, d, valid, block_root, bounds, meta, tri, t_far,
         shape, dtype=dtype, device=o.device)
     t, u, v = (out(torch.float32, (n,)) for _ in range(3))
     prim = out(torch.int32, (n,))
-    stats = out(torch.int32, (nb, 2))
+    dpos = out(torch.int32, (nb,))          # scratch: 3 sign bits per packet
+    stats = out(torch.int32, (n // GROUP, 6))
     ptr = lambda x: ctypes.c_void_p(x.data_ptr())  # noqa: E731
     with torch.cuda.device(o.device):     # the launch targets this device
         stream = torch.cuda.current_stream(o.device).cuda_stream
         err = lib.bvh_traverse_launch(
             ptr(o), ptr(d), ptr(valid), ptr(block_root), ptr(t_far),
             ptr(bounds), ptr(meta), ptr(tri), nb, bounds.shape[0],
-            int(any_hit), ptr(t), ptr(prim), ptr(u), ptr(v), ptr(stats),
-            ctypes.c_void_p(stream))
-    if err:
-        msg = lib.bvh_traverse_error_string(err).decode()
-        raise RuntimeError(f"bvh_traverse launch failed: {msg} ({err})")
+            int(any_hit), ptr(dpos), ptr(t), ptr(prim), ptr(u), ptr(v),
+            ptr(stats), ctypes.c_void_p(stream))
+    _raise_if(lib, err, "launch")
     if nb:
         if any_hit:
             launches_any_hit += 1
         else:
             launches_closest += 1
-    return Traversal(t, prim, u, v, stats[:, 0], stats[:, 1])
+    return Traversal(t, prim, u, v, stats[:, 0], stats[:, 1], stats[:, 2],
+                     stats[:, 3], GROUP, stats[:, 4], stats[:, 5])
 
 
 def bvh_intersect(o, d, valid, block_root, bounds, meta, tri,
