@@ -33,7 +33,10 @@ of bench_inner.py:208-229 on the procedural wavelet brick):
                  arguments trace_volume_fast gives it for the 64^3 brick at
                  512^2: plain, isosurface, AMR subgrid, slice plane
                  and the three together; six subgrids in one launch; every
-                 launch of the wavefront frame
+                 launch of the wavefront frame. Each hold also prints the
+                 kernel's schedule counts (busy blocks, batches read
+                 through L1, largest box) beside slice_schedule_plain's,
+                 which must be equal
   hold_K5        the z-window kernel vs its plain version on the 256^3
                  brick (64 MiB, 17 windows), and vs K4 on the same brick
   frame_volume   render_volume on the card for those five, launch counts,
@@ -42,7 +45,12 @@ of bench_inner.py:208-229 on the procedural wavelet brick):
                  under march_round), vs its plain twin and vs the gather
                  march
   golden_volume  64^2 frames against the JAX package's committed frames
-  time_launch / time_frame  CUDA-event and host times with bounds
+  slice_occupancy  registers, shared memory, blocks per SM of K4 and K5
+  time_launch / time_frame  CUDA-event and host times with bounds; a
+                 slice launch with its wrapper's time, blocks, busy blocks
+                 and waves, and its shape (slice_launch_shape: each block's
+                 span on the card's clock, the longest block against the
+                 launch)
 then the kernels line and, last, the device line.
 
 The scene is the flagship bench configuration (bench_inner.py --fast) with
@@ -488,8 +496,9 @@ ALL_FEATURES = "iso+amr+slice"
 
 
 def capture_slice_launches(fn) -> list:
-    """Run fn() and return (plan, color_in, w_in, slab_rows) of every
-    slice-kernel launch it made (the shapes the main path gives it)."""
+    """Run fn() and return (plan, color_in, w_in, slab_rows, film_width) of
+    every slice-kernel launch it made (the shapes the main path gives
+    it)."""
     seen = []
     orig = sm._run_kernel
 
@@ -523,17 +532,19 @@ def count_rounds(fn) -> tuple:
     return out, len(calls)
 
 
-def slice_bound_ms(plan, pairs: int) -> tuple:
+def slice_bound_ms(plan, pairs: int, ray_bytes: int = 61) -> tuple:
     """Least time the card could take for one slice-march launch: its fp32
     operations (this run's marched pairs) over the fp32 peak, against its
-    bytes (brick, subgrids, table, 12 ray rows in, the 4 rows of color and
-    w out) over the memory rate."""
+    bytes (brick, subgrids, table, and `ray_bytes` per ray: the 7 ray rows,
+    color and w in, the bool active mask, color and w out) over the memory
+    rate. The first port's wrapper stacked 12 float rows in a ray, so its
+    bound counted 64 bytes per ray; `bound_ms_64b` keeps shares comparable."""
     per_pair = (PLANE_FLOPS + SUBGRID_FLOPS * len(plan.subs)
                 + ISO_FLOPS * len(plan.iso) + SLICE_FLOPS * len(plan.slices))
     flops = per_pair * pairs
     n = plan.rows[0].shape[0]
-    nbytes = 4 * (plan.S.numel() + sum(Ss.numel() for Ss, _ in plan.subs)
-                  + plan.rgba.numel() + 16 * n)
+    nbytes = (4 * (plan.S.numel() + sum(Ss.numel() for Ss, _ in plan.subs)
+                   + plan.rgba.numel()) + ray_bytes * n)
     t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
             else "bytes", flops, nbytes)
@@ -546,9 +557,13 @@ def hold_slice(name: str, call: tuple) -> dict:
     within 1e-5 of the 0.99 termination threshold on either side, or whose
     first iso / slice-plane crossing falls on another plane (a last-bit
     difference moved a discrete event by one plane). Event rays are
-    counted and limited, a disagreeing ray without such an event fails."""
-    plan, color_in, w_in, slab_rows = call
-    k = sm._run_kernel(plan, color_in, w_in, slab_rows, diag=True)
+    counted and limited, a disagreeing ray without such an event fails.
+    The kernel's schedule counts (busy blocks, batches read through L1,
+    largest box) are held against slice_schedule_plain's on the same
+    launch: all three must be equal."""
+    plan, color_in, w_in, slab_rows, film_width = call
+    k = sm._run_kernel(plan, color_in, w_in, slab_rows, film_width,
+                       diag=True)
     torch.cuda.synchronize()
     t0 = time.time()
     p = sm._run_plain(plan, color_in, w_in, slab_rows)
@@ -565,9 +580,14 @@ def hold_slice(name: str, call: tuple) -> dict:
     flag_mism = int(((kf != pf) & ~event).sum())
     n_event = int(event.sum())
     nz = plan.S.shape[0]
+    sch = sm.slice_schedule_plain(plan, color_in, w_in, slab_rows, film_width)
+    mirror = sch.counts()
+    sched_ok = k.sched == mirror
     rec = dict(
         kernel=name, rays=n, brick=list(plan.S.shape), planes=plan.n_planes,
         windows=len(sm._windows(nz, slab_rows)) if nz > slab_rows else 1,
+        film_width=film_width, blocks=int(sch.ray_of.shape[0]),
+        schedule=k.sched, schedule_plain=mirror, schedule_equal=sched_ok,
         pairs=[int(k.pairs), int(p.pairs)], max_abs_err=max_err,
         event_rays=n_event, near_threshold_rays=int(near.sum()),
         crossing_plane_differs=int((k.cross_k != p.cross_k).sum()),
@@ -576,28 +596,84 @@ def hold_slice(name: str, call: tuple) -> dict:
         crossings=int((k.cross_k >= 0).sum()), plain_s=plain_s,
         tolerance=dict(max_abs_err=HOLD_TOL, event_frac=EVENT_FRAC),
         ok=(max_err <= HOLD_TOL and n_event <= EVENT_FRAC * n
-            and flag_mism == 0))
+            and flag_mism == 0 and sched_ok))
     log("hold_" + name, **rec)
     if not rec["ok"]:
         raise SystemExit(f"{name}: kernel disagrees with the plain version")
     rec["color"] = k.color
     rec["w"] = k.w
+    rec["busy_blocks"] = k.sched["busy_blocks"]
     return rec
 
 
-def time_slice_launch(name: str, call: tuple, card: str, pairs: int) -> dict:
+def slice_occupancy() -> dict:
+    """Registers, shared memory, blocks per SM of each slice entry point."""
+    return {name: sm.kernel_occupancy(entry) for name, entry in
+            (("K4", sm._ENTRY_PLAIN), ("K4_features", sm._ENTRY_FEATURES),
+             ("K5", sm._ENTRY_SLAB))}
+
+
+def time_slice_launch(name: str, call: tuple, card: str, pairs: int,
+                      occupancy: dict, busy_blocks=None) -> dict:
     """CUDA-event time of the kernel alone (launch prepared once), of the
-    whole wrapper call, and the launch's bound."""
-    plan, color_in, w_in, slab_rows = call
-    launch = sm._prepare_launch(plan, color_in, w_in, slab_rows)
+    whole wrapper call, the launch's bound, and how it sits on the card:
+    blocks launched and busy, resident blocks per SM, waves (busy blocks
+    over the resident ones)."""
+    plan, color_in, w_in, slab_rows, film_width = call
+    launch = sm._prepare_launch(plan, color_in, w_in, slab_rows,
+                                film_width=film_width)
     ms = cuda_ms(lambda: sm._launch(launch), reps=20)
     wrapper_ms = cuda_ms(lambda: sm._run_kernel(*call), reps=10)
     b_ms, b_by, flops, nbytes = slice_bound_ms(plan, pairs)
+    b64_ms = slice_bound_ms(plan, pairs, ray_bytes=64)[0]
+    occ = occupancy[{sm._ENTRY_PLAIN: "K4", sm._ENTRY_FEATURES: "K4_features",
+                     sm._ENTRY_SLAB: "K5"}[launch.entry]]
+    resident = occ["blocks_per_sm"] * occ["sms"]
+    blocks = int(sm._blocks(int(color_in.shape[0]), film_width).shape[0])
     rec = dict(ms=ms, wrapper_ms=wrapper_ms, bound_ms=b_ms, bound_by=b_by,
-               share_of_bound=b_ms / ms, flops=flops, bytes=nbytes,
-               rays=int(color_in.shape[0]), pairs=pairs)
+               share_of_bound=b_ms / ms, bound_ms_64b=b64_ms,
+               share_of_bound_64b=b64_ms / ms, flops=flops, bytes=nbytes,
+               rays=int(color_in.shape[0]), pairs=pairs,
+               film_width=film_width, blocks=blocks, busy_blocks=busy_blocks,
+               blocks_per_sm=occ["blocks_per_sm"],
+               waves=None if busy_blocks is None else busy_blocks / resident)
     log("time_launch", launch=name, card=card, **rec)
+    slice_launch_shape(name, call, resident)
     return rec
+
+
+def slice_launch_shape(name: str, call: tuple, resident: int) -> None:
+    """Where a slice launch's time goes, from the card's clock read at each
+    block's start and end (one launch made for this, with no other
+    diagnostic, so its blocks run the schedule a frame's do): the launch's
+    span, the longest block's span, its batches and when it began, the mean
+    span of busy and of idle blocks, and all blocks' spans spread evenly
+    over the resident blocks (`even_us`: the launch if no block waited on
+    another)."""
+    plan, color_in, w_in, slab_rows, film_width = call
+    launch = sm._prepare_launch(plan, color_in, w_in, slab_rows,
+                                film_width=film_width)
+    nb = int(sm._blocks(int(color_in.shape[0]), film_width).shape[0])
+    clock = torch.zeros((nb, 3), dtype=torch.int64, device=launch.out.device)
+    launch.args.block_ns = clock.data_ptr()
+    sm._launch(launch)
+    torch.cuda.synchronize()
+    c = clock.cpu()
+    t0 = int(c[:, 0].min())
+    span = (c[:, 1] - c[:, 0]).double() / 1e3
+    busy = c[:, 2] > 0
+    i = int(torch.argmax(span))
+    log("slice_launch_shape", launch=name, blocks=nb,
+        busy_blocks=int(busy.sum()), span_us=(int(c[:, 1].max()) - t0) / 1e3,
+        longest_block_us=float(span[i]), longest_block_batches=int(c[i, 2]),
+        longest_block_began_us=(int(c[i, 0]) - t0) / 1e3,
+        busy_block_us_mean=float(span[busy].mean()) if bool(busy.any())
+        else 0.0,
+        idle_block_us_mean=float(span[~busy].mean()) if bool((~busy).any())
+        else 0.0,
+        batches_per_busy_block=float(c[busy, 2].double().mean())
+        if bool(busy.any()) else 0.0,
+        even_us=float(span.sum()) / resident)
 
 
 def time_frame(name: str, fn, card: str, kernel_ms: float, rays: int,
@@ -704,8 +780,8 @@ def volume_phases(dev, card: str, film: int = 512, small: int = 64,
         raise SystemExit("six subgrids did nothing")
     del mscene, many
     # K5 against K4's entry point on the same brick, marched whole
-    plan, c_in, w_in, slab_rows = calls["V256"]
-    whole = sm._run_kernel(plan, c_in, w_in, plan.S.shape[0], diag=True)
+    plan, c_in, w_in, slab_rows, fw = calls["V256"]
+    whole = sm._run_kernel(plan, c_in, w_in, plan.S.shape[0], fw, diag=True)
     torch.cuda.synchronize()
     err = max(float((whole.color - held["V256"]["color"]).abs().max()),
               float((whole.w - held["V256"]["w"]).abs().max()))
@@ -742,8 +818,10 @@ def volume_phases(dev, card: str, film: int = 512, small: int = 64,
     # the color and opacity of the brick before: hold each one
     bcalls = capture_slice_launches(lambda: vt.trace_volume(
         bscene, barena, W, H, slice_axes=saxes))
+    wave_busy = []
     for i, call in enumerate(bcalls):
         rec = hold_slice(f"K4_wavefront_{i}", call)
+        wave_busy.append(rec["busy_blocks"])
         del rec["color"], rec["w"]
     fb_march = vt.trace_volume(bscene, barena, W, H, slice_axes=())
     d = (fb_wave[:, :3] - fb_march[:, :3]).abs()
@@ -780,14 +858,19 @@ def volume_phases(dev, card: str, film: int = 512, small: int = 64,
             raise SystemExit(f"golden_volume {kind} failed")
 
     # ---- times ------------------------------------------------------------
+    occupancy = slice_occupancy()
+    log("slice_occupancy", card=card, tile=list(sm.TILE),
+        plane_batch=sm.PLANE_BATCH, **occupancy)
     launch = {k: time_slice_launch("K5" if k == "V256" else "K4_" + k,
-                                   calls[k], card, held[k]["pairs"][0])
+                                   calls[k], card, held[k]["pairs"][0],
+                                   occupancy, held[k]["busy_blocks"])
               for k in specs}
     # what the window ladder costs: the same 256^3 brick marched whole
-    plan, c_in, w_in, _ = calls["V256"]
-    time_slice_launch("K4_whole_V256", (plan, c_in, w_in, plan.S.shape[0]),
-                      card, held["V256"]["pairs"][0])
-    plain_ms = {k: cuda_ms(lambda: sm._run_plain(*calls[k]), reps=1,
+    plan, c_in, w_in, _, fw = calls["V256"]
+    time_slice_launch("K4_whole_V256",
+                      (plan, c_in, w_in, plan.S.shape[0], fw), card,
+                      held["V256"]["pairs"][0], occupancy)
+    plain_ms = {k: cuda_ms(lambda: sm._run_plain(*calls[k][:4]), reps=1,
                            warmup=0) for k in ("plain", "V256")}
     log("time_plain", card=card, K4_plain=plain_ms["plain"],
         K5=plain_ms["V256"])
@@ -797,10 +880,14 @@ def volume_phases(dev, card: str, film: int = 512, small: int = 64,
     arena64 = make_arena(rays["plain"], 0)
     time_frame("march_brick_V64", lambda: vt.trace_volume(
         scene64, arena64, W, H, max_rounds=16), card, 0.0, n, reps=4)
-    bms = [cuda_ms(lambda: sm._launch(launch_), reps=5)
-           for launch_ in [sm._prepare_launch(*c) for c in bcalls]]
-    log("time_wavefront_launches", card=card, ms=bms,
-        rays_queued=[int(c[0].active.sum()) for c in bcalls])
+    bms = [cuda_ms(lambda: sm._launch(launch_), reps=20)
+           for launch_ in [sm._prepare_launch(*c[:4], film_width=c[4])
+                           for c in bcalls]]
+    wrap_ms = [cuda_ms(lambda: sm._run_kernel(*c), reps=5) for c in bcalls]
+    resident = occupancy["K4"]["blocks_per_sm"] * occupancy["K4"]["sms"]
+    log("time_wavefront_launches", card=card, ms=bms, wrapper_ms=wrap_ms,
+        rays_queued=[int(c[0].active.sum()) for c in bcalls],
+        busy_blocks=wave_busy, waves=[b / resident for b in wave_busy])
     time_frame("wavefront_V2x49", lambda: vt.trace_volume(
         bscene, barena, W, H, slice_axes=saxes), card, sum(bms), n, reps=4)
     time_frame("wavefront_V2x49_march", lambda: vt.trace_volume(
@@ -812,8 +899,8 @@ def volume_phases(dev, card: str, film: int = 512, small: int = 64,
             source="gravit_tpu_torch/csrc/slice_march.cu",
             replaces=f"gravit_tpu/ops/slice_march.py:{line}",
             launches=launches, max_abs_err=hold["max_abs_err"],
-            ms=launch[key]["ms"], plain_ms=plain_ms[key],
-            bound_ms=launch[key]["bound_ms"],
+            ms=launch[key]["ms"], wrapper_ms=launch[key]["wrapper_ms"],
+            plain_ms=plain_ms[key], bound_ms=launch[key]["bound_ms"],
             bound_by=launch[key]["bound_by"], library_ms=None)
 
     return [row("slice_march (whole brick, K4)", 716, "plain",

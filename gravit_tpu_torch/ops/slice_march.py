@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -50,6 +51,15 @@ ISO_H = 0.5
 # reference's dispatch threshold, kept so that the same scenes pick the same
 # engine and render the same image; it is not a memory limit of the card.
 SLAB_BYTES = 4 * 1024 * 1024
+# The kernels' schedule, as csrc/slice_march.cu's TILE_W, TILE_H and BATCH
+# fix it: a block is a (width, height) tile of rays of the film when the
+# caller names the film's width, else TILE[0]*TILE[1] consecutive rays, with
+# PLANE_BATCH threads per ray; it marches in lockstep over batches of
+# PLANE_BATCH planes, aligned at k = 0, one plane per thread, and reads the
+# brick through L1. A batch's box of grid cells is reduced over the block
+# for the diagnostic counts only.
+TILE = (8, 4)
+PLANE_BATCH = 4
 
 # kernel launches since the last reset_launch_counts(); counted where a
 # kernel is launched and nowhere else
@@ -278,11 +288,16 @@ def _row(S, i):
     return S.index_select(0, i.reshape(1))[0]
 
 
-def _march_plain(plan: _Plan, color, w, off: int, z_hi: int) -> MarchResult:
+def _march_plain(plan: _Plan, color, w, off: int, z_hi: int,
+                 on_plane=None) -> MarchResult:
     """March every ray through the z-window [off, z_hi] of the brick, all
     planes with per-ray masks: a ray sees exactly the planes with
     t_in <= t_k < t_out in ascending k. The whole brick is the window
-    [0, nz-1]. Feature state (iso, slice planes) lives within one call."""
+    [0, nz-1]. Feature state (iso, slice planes) lives within one call.
+    `on_plane(k, row, valid, w, gx, gy, tx, ty)`, if given, sees each plane
+    before it is composited: the lower interpolation row in the brick, the
+    valid rays, w before the plane, the clamped grid position and the main
+    grid's taps."""
     S = plan.S
     nz, nS, nL = S.shape
     ox, oy, oz, dx, dy, dz, corr = plan.rows
@@ -362,6 +377,8 @@ def _march_plain(plan: _Plan, color, w, off: int, z_hi: int) -> MarchResult:
                 _hat_taps(torch.clamp(gys, 0.0, float(nSs - 1)), nSs))
             s = torch.where(in_sub, s_sub, s)
         valid = act & (t_k >= t_in) & (t_k < t_out)
+        if on_plane is not None:
+            on_plane(k, off + l0, valid, w, gx, gy, tx, ty)
         inside = valid & (w < OPACITY_TERMINATION)
         pairs = pairs + inside.sum()
 
@@ -441,16 +458,154 @@ def _windows(nz: int, slab_rows: int) -> list:
             for s in range(n_slabs)]
 
 
-def _run_plain(plan: _Plan, color_in, w_in, slab_rows: int) -> MarchResult:
+def _run_plain(plan: _Plan, color_in, w_in, slab_rows: int,
+               on_plane=None) -> MarchResult:
     nz = plan.S.shape[0]
     if nz <= slab_rows:
-        return _march_plain(plan, color_in, w_in, 0, nz - 1)
+        return _march_plain(plan, color_in, w_in, 0, nz - 1, on_plane)
     color, w = color_in, w_in
     pairs = 0
     for off, z_hi in _windows(nz, slab_rows):
-        color, w, cross_k, p = _march_plain(plan, color, w, off, z_hi)
+        color, w, cross_k, p = _march_plain(plan, color, w, off, z_hi,
+                                            on_plane)
         pairs = pairs + p
     return MarchResult(color, w, cross_k, pairs)
+
+
+# --------------------------------------------------------------------------
+# the kernels' schedule, mirrored on the host
+
+def _blocks(n: int, film_width) -> torch.Tensor:
+    """(blocks, rays per block) ray index of each ray slot of a block (the
+    slot's PLANE_BATCH threads march it), -1 for none: a TILE of the film
+    in camera lane order (lane = row * width + col), or consecutive rays
+    when film_width is None."""
+    tw, th = TILE
+    threads = tw * th
+    t = torch.arange(threads)
+    if not film_width:
+        blocks = -(-n // threads)
+        i = torch.arange(blocks)[:, None] * threads + t
+        return torch.where(i < n, i, -1)
+    W = int(film_width)
+    tiles_x = -(-W // tw)
+    blocks = tiles_x * -(-(-(-n // W)) // th)
+    b = torch.arange(blocks)[:, None]
+    col = (b % tiles_x) * tw + t % tw
+    row = (b // tiles_x) * th + t // tw
+    i = row * W + col
+    return torch.where((col < W) & (i < n), i, -1)
+
+
+@dataclasses.dataclass
+class Schedule:
+    """What the kernels' lockstep schedule does on one launch, from the
+    plain version's march (see slice_schedule_plain). Batches are indexed
+    by m (planes m*batch .. m*batch+batch-1); boxes are rows of the
+    permuted brick (z), then y and x cells."""
+
+    ray_of: torch.Tensor     # (blocks, rays per block) i64, -1: none
+    busy: torch.Tensor       # (blocks,) bool: a live lane
+    executed: torch.Tensor   # (blocks, batches) bool
+    box: torch.Tensor        # (blocks, batches, 6) i64: z0 y0 x0 bz by bx
+    nbytes: torch.Tensor     # (blocks, batches) i64, 0: no tap
+
+    def counts(self) -> dict:
+        """The kernels' diagnostic counts for this launch: busy blocks,
+        batches run with a valid tap (all read through L1), the largest
+        box in bytes."""
+        run = self.executed & (self.nbytes > 0)
+        return dict(busy_blocks=int(self.busy.sum()),
+                    batches_l1=int(run.sum()),
+                    max_box_bytes=int(self.nbytes[run].max()) if bool(
+                        run.any()) else 0)
+
+
+def slice_schedule_plain(plan: _Plan, color_in, w_in, slab_rows: int,
+                         film_width=None) -> Schedule:
+    """The kernels' schedule on one launch, from the plain version's march
+    (the kernels' rules, written over its per-plane masks; K5's windows
+    hold disjoint planes in ascending order, so one ladder of batches
+    serves them all):
+      * rays map to blocks as _blocks() says;
+      * a block's live lanes are active, unsaturated and have a valid
+        plane; with none the block is idle. Its batches run from m0 =
+        (first valid plane of its live lanes) // batch while some lane is
+        unsaturated at the batch's start with valid planes at or after it,
+        i.e. while some lane's last unsaturated valid plane is >= m*batch;
+      * batch m's box covers the taps (rows row and row+1, both hat columns
+        in x and y; with iso the +-ISO_H taps too) of the valid planes of
+        the lanes unsaturated at the start of batch m-1 (the kernels take
+        the taps one batch ahead; for m0, at the start). A lane is
+        unsaturated at the start of batch m-1 with a valid plane in batch m
+        exactly when its last unsaturated valid plane is >=
+        max((m-1)*batch, 0)."""
+    S = plan.S
+    nS, nL = S.shape[1:]
+    dev = S.device
+    n = plan.rows[0].shape[0]
+    batch = PLANE_BATCH
+    ray_of = _blocks(n, film_width)
+    nblocks = ray_of.shape[0]
+    block_of = torch.full((n,), -1, dtype=torch.int64)
+    has = ray_of >= 0
+    block_of[ray_of[has]] = torch.arange(nblocks)[:, None].expand_as(
+        ray_of)[has]
+    block_of = block_of.to(dev)          # every ray has one block
+    nb = -(-plan.n_planes // batch) + 1
+    i64 = dict(dtype=torch.int64, device=dev)
+    big = torch.iinfo(torch.int64).max
+
+    # pass 1: each ray's first valid plane and last unsaturated valid plane
+    first = torch.full((n,), big, **i64)
+    last_in = torch.full((n,), -1, **i64)
+
+    def observe(k, row, valid, w_now, gx, gy, tx, ty):
+        first.copy_(torch.where(valid & (first == big), k, first))
+        last_in.copy_(torch.where(valid & (w_now < OPACITY_TERMINATION), k,
+                                  last_in))
+
+    _run_plain(plan, color_in, w_in, slab_rows, on_plane=observe)
+
+    # pass 2: each (block, batch)'s box over its contributing taps
+    ext = torch.stack([torch.full((nblocks, nb), v, **i64)
+                       for v in (big, -1) * 3])
+
+    def reduce(k, row, valid, w_now, gx, gy, tx, ty):
+        m = k // batch
+        lanes = valid & (last_in >= max((m - 1) * batch, 0))
+        if not bool(lanes.any()):
+            return
+        xs, ys = [tx[0], tx[1]], [ty[0], ty[1]]
+        if plan.iso:
+            for h in (ISO_H, -ISO_H):
+                xs += _hat_taps(gx + h, nL)[:2]
+                ys += _hat_taps(gy + h, nS)[:2]
+        xs, ys = torch.stack(xs), torch.stack(ys)
+        rows = torch.full((n,), row, **i64)
+        for q, v in enumerate((rows, rows + 1, ys.amin(0), ys.amax(0),
+                               xs.amin(0), xs.amax(0))):
+            ext[q, :, m] = ext[q, :, m].scatter_reduce(
+                0, block_of[lanes], v[lanes], "amin" if q % 2 == 0 else "amax")
+
+    _run_plain(plan, color_in, w_in, slab_rows, on_plane=reduce)
+
+    live0 = last_in >= 0
+    kmin = torch.full((nblocks,), big, **i64).scatter_reduce(
+        0, block_of[live0], first[live0], "amin")
+    busy = kmin < big
+    last_blk = torch.full((nblocks,), -1, **i64).scatter_reduce(
+        0, block_of, last_in, "amax")
+    m = torch.arange(nb, device=dev)
+    executed = (busy[:, None] & (m >= (kmin // batch)[:, None])
+                & (m * batch <= last_blk[:, None]))
+    zmn, zmx, ymn, ymx, xmn, xmx = ext
+    box = torch.stack([zmn, ymn, xmn, zmx - zmn + 1, ymx - ymn + 1,
+                       xmx - xmn + 1], dim=-1)
+    box = torch.where((zmn < big)[..., None], box, 0)
+    nbytes = box[..., 3] * box[..., 4] * box[..., 5] * 4
+    return Schedule(ray_of=ray_of, busy=busy.cpu(), executed=executed.cpu(),
+                    box=box.cpu(), nbytes=nbytes.cpu())
 
 
 # --------------------------------------------------------------------------
@@ -460,16 +615,23 @@ class _MarchArgs(ctypes.Structure):
     """Mirror of `MarchArgs` in csrc/slice_march.cu (natural alignment)."""
 
     _fields_ = [
-        ("rays", ctypes.c_void_p), ("S", ctypes.c_void_p),
-        ("tf", ctypes.c_void_p), ("params", ctypes.c_void_p),
-        ("out", ctypes.c_void_p), ("cross_k", ctypes.c_void_p),
-        ("pairs", ctypes.c_void_p), ("sub", ctypes.c_void_p),
-        ("sub_shape", ctypes.c_void_p),
+        ("ox", ctypes.c_void_p), ("oy", ctypes.c_void_p),
+        ("oz", ctypes.c_void_p), ("dx", ctypes.c_void_p),
+        ("dy", ctypes.c_void_p), ("dz", ctypes.c_void_p),
+        ("corr", ctypes.c_void_p), ("active", ctypes.c_void_p),
+        ("color_in", ctypes.c_void_p), ("w_in", ctypes.c_void_p),
+        ("S", ctypes.c_void_p), ("tf", ctypes.c_void_p),
+        ("params", ctypes.c_void_p), ("out", ctypes.c_void_p),
+        ("cross_k", ctypes.c_void_p), ("pairs", ctypes.c_void_p),
+        ("sched", ctypes.c_void_p), ("block_ns", ctypes.c_void_p),
+        ("sub", ctypes.c_void_p), ("sub_shape", ctypes.c_void_p),
+        ("color_s0", ctypes.c_longlong), ("color_s1", ctypes.c_longlong),
+        ("w_s", ctypes.c_longlong),
         ("n", ctypes.c_int), ("nz", ctypes.c_int), ("nS", ctypes.c_int),
         ("nL", ctypes.c_int), ("n_planes", ctypes.c_int),
         ("slab_rows", ctypes.c_int), ("n_iso", ctypes.c_int),
         ("n_sub", ctypes.c_int), ("n_slices", ctypes.c_int),
-        ("dzg", ctypes.c_float),
+        ("film_width", ctypes.c_int), ("dzg", ctypes.c_float),
     ]
 
 
@@ -477,7 +639,10 @@ class _MarchArgs(ctypes.Structure):
 _ENTRY_PLAIN, _ENTRY_FEATURES, _ENTRY_SLAB = 0, 1, 2
 
 
+@functools.cache
 def _library() -> ctypes.CDLL:
+    """The built csrc/slice_march.cu with its C interface declared, once
+    per process; raises if its argument block does not match _MarchArgs."""
     lib = _build.load("slice_march")
     lib.slice_march_launch.argtypes = [ctypes.POINTER(_MarchArgs),
                                        ctypes.c_int, ctypes.c_void_p]
@@ -486,11 +651,28 @@ def _library() -> ctypes.CDLL:
     lib.slice_march_error_string.restype = ctypes.c_char_p
     lib.slice_march_args_size.argtypes = []
     lib.slice_march_args_size.restype = ctypes.c_int
+    lib.slice_march_occupancy.argtypes = [ctypes.c_int,
+                                          ctypes.POINTER(ctypes.c_int)]
+    lib.slice_march_occupancy.restype = ctypes.c_int
     if lib.slice_march_args_size() != ctypes.sizeof(_MarchArgs):
         raise RuntimeError("slice_march: MarchArgs layout mismatch "
                            f"({lib.slice_march_args_size()} vs "
                            f"{ctypes.sizeof(_MarchArgs)})")
     return lib
+
+
+def kernel_occupancy(entry: int) -> dict:
+    """How an entry point sits on the current card: threads and registers
+    per thread, shared memory per block, local memory (spills) per thread,
+    resident blocks per SM (from the CUDA runtime) and SMs."""
+    lib = _library()
+    vals = (ctypes.c_int * 6)()
+    err = lib.slice_march_occupancy(entry, vals)
+    if err:
+        msg = lib.slice_march_error_string(err).decode()
+        raise RuntimeError(f"slice_march occupancy query: {msg} ({err})")
+    return dict(zip(("block_threads", "registers", "smem_bytes",
+                     "local_bytes", "blocks_per_sm", "sms"), vals))
 
 
 def _pack_params(plan: _Plan) -> torch.Tensor:
@@ -521,16 +703,19 @@ class _Launch(NamedTuple):
     out: torch.Tensor        # (4, N)
     cross_k: object          # (N,) i32, or None without diagnostics
     pairs: object            # (1,) i64, or None without diagnostics
+    sched: object            # (3,) i64, or None without diagnostics
     inputs: tuple
 
 
 def _prepare_launch(plan: _Plan, color_in, w_in, slab_rows: int,
-                    diag: bool = False) -> _Launch:
-    """Check the tensors and pack the ray rows, the scalar table, the
-    subgrid table and the argument block of one launch. CUDA tensors only.
-    `diag` adds the two diagnostic outputs (each ray's crossing plane, the
-    marched-pair count), which a frame does not need and does not pay for.
-    """
+                    diag: bool = False, film_width=None) -> _Launch:
+    """Check the tensors and fill the argument block of one launch; the
+    ray rows, active, color_in and w_in are read in place. CUDA tensors
+    only. `film_width` names the film's width when the rays are the film
+    in camera lane order (blocks then take tiles of it). `diag` adds the
+    diagnostic outputs (each ray's crossing plane, the marched-pair count,
+    the schedule's counts), which a frame does not need and does not pay
+    for."""
     S = plan.S
     dev = S.device
     if dev.type != "cuda":
@@ -544,15 +729,19 @@ def _prepare_launch(plan: _Plan, color_in, w_in, slab_rows: int,
                              f"{x.device}")
     if tuple(color_in.shape) != (n, 3) or tuple(w_in.shape) != (n,):
         raise ValueError("color_in must be (N, 3) and w_in (N,)")
-    rays = torch.stack([*plan.rows, plan.active.to(torch.float32),
-                        color_in[:, 0], color_in[:, 1], color_in[:, 2],
-                        w_in]).contiguous()                      # (12, N)
+    if film_width is not None and int(film_width) <= 0:
+        raise ValueError(f"film_width must be positive, got {film_width}")
+    # (N,) rows are contiguous as _prepare makes them; a strided one is
+    # copied here
+    rows = tuple(r.contiguous() for r in plan.rows)
+    active = plan.active.contiguous()
     params = _pack_params(plan)
     out = torch.empty((4, n), dtype=torch.float32, device=dev)
-    cross_k = pairs = sub_ptrs = sub_shape = None
+    cross_k = pairs = sched = sub_ptrs = sub_shape = None
     if diag:
         cross_k = torch.empty((n,), dtype=torch.int32, device=dev)
         pairs = torch.zeros((1,), dtype=torch.int64, device=dev)
+        sched = torch.zeros((3,), dtype=torch.int64, device=dev)
     if subs:
         # any number of subgrids: their addresses and shapes in device tables
         sub_ptrs = torch.tensor([Ss.data_ptr() for Ss in subs],
@@ -564,21 +753,29 @@ def _prepare_launch(plan: _Plan, color_in, w_in, slab_rows: int,
         return None if x is None else x.data_ptr()
 
     args = _MarchArgs()
-    args.rays, args.S, args.tf = rays.data_ptr(), S.data_ptr(), \
-        plan.rgba.data_ptr()
+    (args.ox, args.oy, args.oz, args.dx, args.dy, args.dz,
+     args.corr) = (r.data_ptr() for r in rows)
+    args.active = active.data_ptr()
+    args.color_in, args.w_in = color_in.data_ptr(), w_in.data_ptr()
+    args.color_s0, args.color_s1 = color_in.stride()
+    args.w_s = w_in.stride(0)
+    args.S, args.tf = S.data_ptr(), plan.rgba.data_ptr()
     args.params, args.out = params.data_ptr(), out.data_ptr()
-    args.cross_k, args.pairs = ptr(cross_k), ptr(pairs)
+    args.cross_k, args.pairs, args.sched = ptr(cross_k), ptr(pairs), \
+        ptr(sched)
     args.sub, args.sub_shape = ptr(sub_ptrs), ptr(sub_shape)
     args.n, args.nz, args.nS, args.nL = n, nz, nS, nL
     args.n_planes, args.slab_rows = plan.n_planes, slab_rows
     args.n_iso, args.n_sub, args.n_slices = \
         len(plan.iso), len(plan.subs), len(plan.slices)
+    args.film_width = int(film_width or 0)
     args.dzg = plan.dzg
     features = bool(plan.iso or plan.subs or plan.slices)
     entry = (_ENTRY_SLAB if nz > slab_rows
              else _ENTRY_FEATURES if features else _ENTRY_PLAIN)
-    return _Launch(args, entry, out, cross_k, pairs,
-                   (rays, params, S, plan.rgba, subs, sub_ptrs, sub_shape))
+    return _Launch(args, entry, out, cross_k, pairs, sched,
+                   (rows, active, color_in, w_in, params, S, plan.rgba, subs,
+                    sub_ptrs, sub_shape))
 
 
 def _launch(launch: _Launch) -> None:
@@ -601,14 +798,28 @@ def _launch(launch: _Launch) -> None:
             launches_slice += 1
 
 
+class KernelResult(NamedTuple):
+    color: torch.Tensor      # (N, 3)
+    w: torch.Tensor          # (N,)
+    # diagnostics (None unless asked for)
+    cross_k: object          # (N,) i32
+    pairs: object            # 0-d i64
+    sched: object            # {busy_blocks, batches_l1, max_box_bytes}
+
+
 def _run_kernel(plan: _Plan, color_in, w_in, slab_rows: int,
-                diag: bool = False) -> MarchResult:
+                film_width=None, diag: bool = False) -> KernelResult:
     """K4 for a brick within slab_rows, else K5 (z-windows)."""
-    launch = _prepare_launch(plan, color_in, w_in, slab_rows, diag)
+    launch = _prepare_launch(plan, color_in, w_in, slab_rows, diag,
+                             film_width)
     _launch(launch)
     out = launch.out
-    return MarchResult(out[0:3].T, out[3], launch.cross_k,
-                       launch.pairs[0] if diag else None)
+    sched = None
+    if diag:
+        sched = dict(zip(("busy_blocks", "batches_l1", "max_box_bytes"),
+                         launch.sched.tolist()))
+    return KernelResult(out[0:3].T, out[3], launch.cross_k,
+                        launch.pairs[0] if diag else None, sched)
 
 
 # --------------------------------------------------------------------------
@@ -664,7 +875,7 @@ def slice_march(o_obj, d_obj, active, color_in, w_in,
                 low, high, origin, spacing: tuple,
                 slab_bytes: int = SLAB_BYTES,
                 isovalues: tuple = (), subgrids=(), slices: tuple = (),
-                impl=None):
+                impl=None, film_width=None):
     """March N rays through the whole brick.
 
     o_obj, d_obj: (N, 3) object-space rays, d unit (march_round's frame).
@@ -678,7 +889,10 @@ def slice_march(o_obj, d_obj, active, color_in, w_in,
     positions and weights are identical either way.
 
     CPU tensors run the plain version, CUDA tensors a kernel;
-    impl="plain" runs the plain version on any device.
+    impl="plain" runs the plain version on any device. `film_width`: the
+    film's width when the rays are the film in camera lane order (lane =
+    row * width + col); the kernels then march 2-D tiles of it. It changes
+    the schedule only, never the result.
     """
     if impl not in (None, "plain"):
         raise ValueError(f"impl must be None or 'plain', got {impl!r}")
@@ -697,7 +911,8 @@ def slice_march(o_obj, d_obj, active, color_in, w_in,
                     f"{what} on the slice engine require a brick within "
                     f"slab_bytes (nz={nz} > slab_rows={slab_rows}); callers "
                     "gate larger bricks to the gather march")
-    plain = impl == "plain" or o_obj.device.type == "cpu"
-    r = (_run_plain if plain else _run_kernel)(plan, color_in, w_in,
-                                               slab_rows)
+    if impl == "plain" or o_obj.device.type == "cpu":
+        r = _run_plain(plan, color_in, w_in, slab_rows)
+    else:
+        r = _run_kernel(plan, color_in, w_in, slab_rows, film_width)
     return r.color, r.w, _flags(r.w, plan.active)

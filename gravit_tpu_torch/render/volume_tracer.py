@@ -78,7 +78,7 @@ def _per_volume(field: tuple, v: int) -> tuple:
 
 def march_round(scene: VolumeSceneData, arena: RayArena,
                 differentiable: bool = False, slice_axes: tuple = (),
-                impl=None):
+                impl=None, film_width=None):
     """Phase 1: march all queued rays through their bricks (one pass per
     volume; rays of other volumes are masked).
 
@@ -89,6 +89,8 @@ def march_round(scene: VolumeSceneData, arena: RayArena,
     with an entry marches through the slice engine (ops/slice_march.py)
     instead of the gather march; slice_axes_for computes the entries.
     impl="plain" runs the slice engine's plain version on any device.
+    film_width: the film's width when the arena's lanes are the film in
+    camera lane order (the slice kernels then march 2-D tiles of it).
     """
     safe_inst = torch.clamp(arena.inst, 0, scene.num_instances - 1).long()
     vol_of_ray = scene.inst_vol[safe_inst]
@@ -121,7 +123,8 @@ def march_round(scene: VolumeSceneData, arena: RayArena,
                 base_step=float(min(spacing)),
                 low=scene.vol_vrange[v][0], high=scene.vol_vrange[v][1],
                 origin=scene.vol_origin[v], spacing=tuple(spacing),
-                isovalues=isovals, subgrids=subs, slices=slcs, impl=impl)
+                isovalues=isovals, subgrids=subs, slices=slcs, impl=impl,
+                film_width=film_width)
         else:
             c2, w2, flags = march_brick(
                 o_obj, d_obj, mask, color, w,
@@ -320,7 +323,8 @@ def trace_volume_fast(scene: VolumeSceneData, rays: RayArena, width: int,
         slices=tuple(tuple(float(x) for x in pl)
                      for pl in _per_volume(scene.vol_slices, 0)),
         subgrids=_per_volume(scene.vol_subgrids, 0),
-        impl="plain" if use_reference else impl)
+        impl="plain" if use_reference else impl,
+        film_width=width if n == width * height else None)
 
     # single brick: BOUNDARY rays have nowhere to requeue -> EXTERNAL ->
     # every primary deposits color*w (shuffle_volume's retirement rule)
@@ -375,7 +379,9 @@ def trace_volume(scene: VolumeSceneData, arena: RayArena, width: int,
         if not unroll and not bool(
                 (arena.active & (arena.inst >= 0)).any()):
             break
+        # the arena's lanes are the camera's, in lane order (make_arena)
         arena = march_round(scene, arena, differentiable=unroll,
-                            slice_axes=slice_axes, impl=impl)
+                            slice_axes=slice_axes, impl=impl,
+                            film_width=width)
         arena, fb = shuffle_volume(scene, arena, fb)
     return fb
