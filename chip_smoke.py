@@ -27,6 +27,24 @@ Phases (one JSON line each; any failure exits nonzero). The surface path:
                  kernel's own clock), of the plain version, and of the
                  frames (eager, the host's enqueue time and launch counts,
                  and replayed from a CUDA graph)
+The multi-instance and looped surface tracers (scenes: `simple_app`, the
+reference's gvtSimple, 25 instances of a cone and a cube; and
+`make_multi_scene`, 80 instances of 10 displaced spheres, which turns on
+the instance tree and the segment-aligned pack):
+  hold_K1_multi / hold_K2_multi  K1 and K2 on launches of the slice C
+                 frames (blocks of 10 meshes side by side in the pack, the
+                 looped tracer's mixed pack, SimpleApp's in-place passes)
+                 against both plain versions, as phases 3-4
+  frame_multi    fast-multi and the looped tracer at 512^2 through the
+                 entry points: launch counts against the formula from the
+                 rounds the frame ran, the launches with no live block,
+                 host syncs, the frame against its impl="plain" twin
+                 (SimpleApp at 512^2, the many-domain scene at 128^2);
+                 SimpleApp fast-multi against looped (bit-equal)
+  golden_multi   64^2 frames against the JAX package's committed frames
+                 (SimpleApp at depth 1 and 2, the area-light cube row, the
+                 many-domain scene)
+  time_launch / launch_shape / time_frame  for those launches and frames
 The volume path (scenes: `make_volume_scene`, the volume bench configuration
 of bench_inner.py:208-229 on the procedural wavelet brick):
   hold_K4 x4     the whole-brick slice kernel vs its plain version on the
@@ -76,25 +94,29 @@ sys.path.insert(0, str(ROOT))
 import torch  # noqa: E402
 
 from gravit_tpu_torch.accel.scene_accel import build_scene_bvh  # noqa: E402
+from gravit_tpu_torch.core.math3d import mat4_translate_scale  # noqa: E402
 from gravit_tpu_torch.ops import _build  # noqa: E402
 from gravit_tpu_torch.ops import bvh_traverse as bt  # noqa: E402
 from gravit_tpu_torch.ops import slice_march as sm  # noqa: E402
+from gravit_tpu_torch.render import tracer as tr  # noqa: E402
 from gravit_tpu_torch.render import volume_tracer as vt  # noqa: E402
 from gravit_tpu_torch.render.renderer import (render_surface,  # noqa: E402
                                               render_volume)
 from gravit_tpu_torch.render.scene_build import Instance, build_scene  # noqa: E402
 from gravit_tpu_torch.render.tracer import (make_arena,  # noqa: E402
-                                            trace_image_fast)
+                                            trace_image, trace_image_fast,
+                                            trace_image_fast_multi)
 from gravit_tpu_torch.render.volume_scene import build_volume_scene  # noqa: E402
 from gravit_tpu_torch.scene import image as img  # noqa: E402
 from gravit_tpu_torch.scene.camera import PerspectiveCamera  # noqa: E402
-from gravit_tpu_torch.scene.light import point_light  # noqa: E402
+from gravit_tpu_torch.scene.light import area_light, point_light  # noqa: E402
 from gravit_tpu_torch.scene.material import Material  # noqa: E402
 from gravit_tpu_torch.scene.mesh import Mesh  # noqa: E402
 from gravit_tpu_torch.scene.volume import Volume, wavelet_volume  # noqa: E402
 
 GOLDEN = ROOT / "tests" / "data" / "torch_port_golden.npz"
 VOLUME_GOLDEN = ROOT / "tests" / "data" / "torch_port_volume_golden.npz"
+MULTI_GOLDEN = ROOT / "tests" / "data" / "torch_port_multi_golden.npz"
 FLAGSHIP_BANDS = 187          # 187 x 187 x 2 = 69,938 sphere triangles
 K3_BANDS = 270                # 145,800 triangles: a 7 MB triangle table
 TPU_VMEM_TABLE_BYTES = 6 * 2**20   # above it the TPU kernel's table is in HBM
@@ -110,14 +132,10 @@ class SceneSpec:
     camera: PerspectiveCamera
 
 
-def make_scene(seed: int = 0, bands: int = FLAGSHIP_BANDS, width: int = 512,
-               height: int = 512, max_depth: int = 1) -> SceneSpec:
-    """The flagship configuration (bench_inner.py:51-66) with a procedural
-    mesh: a UV sphere of `bands` latitude bands x `bands` longitudes
-    (2*bands^2 triangles, poles left open), radially displaced by six
-    seeded low-order waves, plus a floor quad under it in the same mesh so
-    that bounces hit something. Default lambert material, one instance
-    with the identity transform, one point light."""
+def displaced_sphere(seed: int, bands: int):
+    """(vertices, 0-based faces) of a UV sphere of `bands` latitude bands x
+    `bands` longitudes (2*bands^2 triangles, poles left open) at
+    SPHERE_CENTER, radially displaced by six seeded low-order waves."""
     rng = np.random.default_rng(seed)
     nlat, nlon = bands + 1, bands
     theta = np.pi * (np.arange(nlat) + 0.5) / nlat
@@ -142,28 +160,153 @@ def make_scene(seed: int = 0, bands: int = FLAGSHIP_BANDS, width: int = 512,
     # counter-clockwise seen from outside: cross(e1, e2) points outward
     faces = np.concatenate([np.stack([a, b, c], -1).reshape(-1, 3),
                             np.stack([b, d, c], -1).reshape(-1, 3)])
+    return verts, faces
 
+
+def compiled_mesh(verts: np.ndarray, faces: np.ndarray, kd=None):
+    """A lambert mesh from vertices and 0-based faces."""
+    mesh = Mesh()
+    mesh.add_vertices(np.asarray(verts, np.float32))
+    mesh.add_faces(np.asarray(faces) + 1)
+    mesh.material = Material() if kd is None else Material(kd=kd)
+    return mesh.finish()
+
+
+def make_scene(seed: int = 0, bands: int = FLAGSHIP_BANDS, width: int = 512,
+               height: int = 512, max_depth: int = 1) -> SceneSpec:
+    """The flagship configuration (bench_inner.py:51-66) with a procedural
+    mesh: displaced_sphere(seed, bands) plus a floor quad under it in the
+    same mesh so that bounces hit something. Default lambert material, one
+    instance with the identity transform, one point light."""
+    verts, faces = displaced_sphere(seed, bands)
     floor_y = SPHERE_CENTER[1] - 1.2 * SPHERE_RADIUS
     floor = np.asarray([[-0.6, floor_y, -0.8], [0.6, floor_y, -0.8],
                         [0.6, floor_y, 0.25], [-0.6, floor_y, 0.25]],
                        np.float32)
     nv = verts.shape[0]
     faces = np.concatenate([faces, nv + np.asarray([[0, 3, 2], [0, 2, 1]])])
-
-    mesh = Mesh()
-    mesh.add_vertices(np.concatenate([verts, floor]))
-    mesh.add_faces(faces + 1)
-    mesh.material = Material()
     camera = PerspectiveCamera(
         eye=(0.0, 0.1, 0.3), focus=(0.0, 0.1, -0.3), up=(0.0, 1.0, 0.0),
         fov=float(45.0 * np.pi / 180.0), film_width=width,
         film_height=height, samples=1, max_depth=max_depth,
         jitter_window=0.0)
     return SceneSpec(
-        meshes=[mesh.finish()],
+        meshes=[compiled_mesh(np.concatenate([verts, floor]), faces)],
         instances=[Instance(mesh_id=0, m=np.eye(4, dtype=np.float32))],
         lights=[point_light((0.0, 0.1, 0.5), (1.0, 1.0, 1.0))],
         camera=camera)
+
+
+# gvtSimple's embedded cone and cube (apps/render/SimpleApp.cpp:83-162),
+# 1-based faces
+CONE_VERTS = [
+    0.5, 0.0, 0.0, -0.5, 0.5, 0.0, -0.5, 0.25, 0.433013, -0.5, -0.25,
+    0.43013, -0.5, -0.5, 0.0, -0.5, -0.25, -0.433013, -0.5, 0.25, -0.433013,
+]
+CONE_FACES = [1, 2, 3, 1, 3, 4, 1, 4, 5, 1, 5, 6, 1, 6, 7, 1, 7, 2]
+CUBE_VERTS = [
+    -0.5, -0.5, 0.5, 0.5, -0.5, 0.5, 0.5, 0.5, 0.5, -0.5, 0.5, 0.5,
+    -0.5, -0.5, -0.5, 0.5, -0.5, -0.5, 0.5, 0.5, -0.5, -0.5, 0.5, -0.5,
+    0.5, 0.5, 0.5, -0.5, 0.5, 0.5, 0.5, 0.5, -0.5, -0.5, 0.5, -0.5,
+    -0.5, -0.5, 0.5, 0.5, -0.5, 0.5, -0.5, -0.5, -0.5, 0.5, -0.5, -0.5,
+    0.5, -0.5, 0.5, 0.5, 0.5, 0.5, 0.5, -0.5, -0.5, 0.5, 0.5, -0.5,
+    -0.5, -0.5, 0.5, -0.5, 0.5, 0.5, -0.5, -0.5, -0.5, -0.5, 0.5, -0.5,
+]
+CUBE_FACES = [
+    1, 2, 3, 1, 3, 4, 17, 19, 20, 17, 20, 18, 6, 5, 8, 6, 8, 7,
+    23, 21, 22, 23, 22, 24, 10, 9, 11, 10, 11, 12, 13, 15, 16, 13, 16, 14,
+]
+
+
+def cone_mesh():
+    return compiled_mesh(np.reshape(CONE_VERTS, (-1, 3)),
+                         np.reshape(CONE_FACES, (-1, 3)) - 1,
+                         kd=(1.0, 1.0, 1.0))
+
+
+def cube_mesh():
+    return compiled_mesh(np.reshape(CUBE_VERTS, (-1, 3)),
+                         np.reshape(CUBE_FACES, (-1, 3)) - 1,
+                         kd=(1.0, 1.0, 1.0))
+
+
+def simple_app(width: int = 512, height: int = 512,
+               max_depth: int = 1) -> SceneSpec:
+    """The reference's gvtSimple (SimpleApp.cpp:164-186): a 5x5 grid of
+    alternating cones and cubes scaled by 0.4 at 0.5 spacing, one point
+    light, the camera of tests/scenes.py::simple_scene (golden jitter)."""
+    instances = []
+    for k, (i, j) in enumerate((i, j) for i in range(-2, 3)
+                               for j in range(-2, 3)):
+        instances.append(Instance(mesh_id=k % 2, m=mat4_translate_scale(
+            (0.0, i * 0.5, j * 0.5), (0.4, 0.4, 0.4))))
+    camera = PerspectiveCamera(
+        eye=(4.0, 0.0, 0.0), focus=(0.0, 0.0, 0.0), up=(0.0, 1.0, 0.0),
+        fov=float(45.0 * np.pi / 180.0), film_width=width,
+        film_height=height, samples=1, max_depth=max_depth,
+        jitter_window=0.5, jitter_mode="golden")
+    return SceneSpec(meshes=[cone_mesh(), cube_mesh()], instances=instances,
+                     lights=[point_light((1.0, 0.0, -1.0), (1.0, 1.0, 1.0))],
+                     camera=camera)
+
+
+def cube_row(lights: list, film: int = 32, n_cubes: int = 5,
+             max_depth: int = 1) -> SceneSpec:
+    """tests/test_fast_multi.py::_cube_row: cubes and cones alternating
+    along z (scale 0.45, spacing 1), so the k-th instance is hit at hop
+    round k; `lights` as given."""
+    return SceneSpec(
+        meshes=[cube_mesh(), cone_mesh()],
+        instances=[Instance(k % 2, mat4_translate_scale(
+            (0.0, 0.0, -2.0 + k), (0.45, 0.45, 0.45)))
+            for k in range(n_cubes)],
+        lights=lights,
+        camera=PerspectiveCamera(
+            eye=(4.5, 0.3, 0.0), focus=(0.0, 0.0, 0.0), up=(0.0, 1.0, 0.0),
+            fov=float(55 * np.pi / 180), film_width=film, film_height=film,
+            samples=1, max_depth=max_depth, jitter_window=0.5))
+
+
+# the area-light cube row of the golden frames
+CUBE_AREA_LIGHTS = [area_light((4.0, 4.0, 0.0), (1.0, 0.9, 0.8),
+                               (-1.0, -1.0, 0.0), 1.5, 1.5),
+                    point_light((-3.0, 2.0, 1.0), (0.3, 0.3, 0.5))]
+MULTI_MESHES = 10
+MULTI_GRID = (8, 10)          # rows (depth) x columns: 80 instances
+MULTI_BANDS = 64              # 8,192 triangles a mesh
+
+
+def make_multi_scene(seed: int = 0, width: int = 512, height: int = 512,
+                     max_depth: int = 1, bands: int = MULTI_BANDS,
+                     meshes: int = MULTI_MESHES,
+                     grid: tuple = MULTI_GRID) -> SceneSpec:
+    """The many-domain configuration: `meshes` meshes, mesh k the displaced
+    sphere of make_scene(seed + k, bands) without its floor, and a rows x
+    columns grid of instances on the y = 0 plane (instance k uses mesh
+    k % meshes), seen at a slant so that rays cross several instance boxes.
+    At the defaults: 80 instances (the instance BVH builds from 64 on) over
+    10 meshes (more than INPLACE_MESH_LIMIT: the segment-aligned pack),
+    81,920 triangles. One point light and one area light."""
+    rows, cols = grid
+    mesh_list = [compiled_mesh(*displaced_sphere(seed + k, bands))
+                 for k in range(meshes)]
+    instances = []
+    for k in range(rows * cols):
+        r, c = divmod(k, cols)
+        x = (c - (cols - 1) / 2.0) * 0.2
+        z = -r * 0.2
+        instances.append(Instance(mesh_id=k % meshes, m=mat4_translate_scale(
+            (x, -SPHERE_CENTER[1], z), (1.0, 1.0, 1.0))))
+    lights = [point_light((0.6, 1.0, 0.6), (0.8, 0.8, 0.8)),
+              area_light((-0.5, 0.9, -0.4), (0.6, 0.6, 0.5),
+                         (0.3, -1.0, 0.2), 0.5, 0.4)]
+    camera = PerspectiveCamera(
+        eye=(0.0, 0.3, 0.6), focus=(0.0, -0.02, -0.7), up=(0.0, 1.0, 0.0),
+        fov=float(40.0 * np.pi / 180.0), film_width=width,
+        film_height=height, samples=1, max_depth=max_depth,
+        jitter_window=0.0)
+    return SceneSpec(meshes=mesh_list, instances=instances, lights=lights,
+                     camera=camera)
 
 
 @dataclasses.dataclass
@@ -246,6 +389,8 @@ NODE_FLOPS = 28
 TRI_FLOPS = 51
 PEAK_FP32 = 67e12             # H100 SXM, fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
+NODE_BYTES = 48               # a node's bounds (8 f32) and meta (4 i32)
+ROW_BYTES = 48                # a triangle row (12 f32)
 # tests/test_torch_tracer.py's tolerances against the JAX package
 GOLDEN_TOL = {1: dict(byte_frac=0.0, float_max=1e-5),
               2: dict(byte_frac=5e-3, float_mean=1e-4)}
@@ -297,9 +442,16 @@ def graph_ms(fn, reps: int = 20) -> tuple:
     return cuda_ms(graph.replay, reps=reps), bool(torch.equal(out, eager))
 
 
+TRAVERSAL_KERNELS = ("packet_dpos_kernel", "bvh_traverse_kernel")
+
+
 def host_counts(fn, reps: int = 2) -> dict:
     """What the host does per fn(): PyTorch operator calls and kernel
-    launches, counted by torch.profiler."""
+    launches, counted by torch.profiler; and what the card does: the
+    device time of all kernels (`device_ms`, busy time), of the
+    traversal's two kernels (`traversal_device_ms`) and of the six longest
+    kernels by name ([name, ms, launches]), by CUPTI (None if the trace
+    holds no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -307,11 +459,25 @@ def host_counts(fn, reps: int = 2) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    counts = {e.key: e.count for e in prof.key_averages()}
+    events = prof.key_averages()
+    counts = {e.key: e.count for e in events}
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
+    busy = sum(device_us(e) for e in kernels) / 1e3 / reps
+    trav = sum(device_us(e) for e in kernels
+               if any(k in e.key for k in TRAVERSAL_KERNELS)) / 1e3 / reps
+    top = sorted(kernels, key=device_us, reverse=True)[:6]
     return dict(
         aten_ops=sum(c for k, c in counts.items()
                      if k.startswith("aten::")) / reps,
-        kernel_launches=counts.get("cudaLaunchKernel", 0) / reps)
+        kernel_launches=counts.get("cudaLaunchKernel", 0) / reps,
+        device_ms=busy or None, traversal_device_ms=trav if busy else None,
+        top_kernels=[[e.key[:60], device_us(e) / 1e3 / reps, e.count / reps]
+                     for e in top])
 
 
 def capture_launches(fn) -> list:
@@ -334,24 +500,37 @@ def capture_launches(fn) -> list:
     return seen
 
 
-def bound_ms(args, res, packet_visits: int, packet_rows: int) -> dict:
+def launch_bytes(args, table_reads: dict) -> int:
+    """Bytes a traversal launch must move, each once: for every lane its
+    t_far in (a miss keeps it) and t, prim, u, v out, and every block's
+    root; in a live block (root >= 0) every lane's direction and valid
+    flag (the packet's summed direction orders the walk) and each valid
+    lane's origin; of the tables, the nodes the walk popped and the rows of
+    the leaves it entered (`table_reads`, from hold_traversal). A block
+    whose root is -1 needs nothing of the rest."""
+    o, valid, block_root = args[0], args[2], args[3]
+    n, nb = o.shape[0], block_root.numel()
+    live = (block_root >= 0).repeat_interleave(bt.PACKET)
+    origins = int((live & (valid != 0)).sum())
+    return (n * 20 + nb * 4 + int(live.sum()) * 16 + origins * 12
+            + table_reads["nodes"] * NODE_BYTES
+            + table_reads["rows"] * ROW_BYTES)
+
+
+def bound_ms(args, res, held: dict) -> dict:
     """Least time the card could take for this launch's work: the larger
-    of its fp32 operations over the fp32 peak and its bytes (rays in, hits
-    out, tables once) over the memory rate. The operations are what the
-    rays need on their own, whatever group they are walked in: a root test
-    per live lane, two node tests per inner node a lane's own slab test
-    passed, the rows of every leaf its own test passed (the kernel counts
-    them). `packet_bound_ms` counts instead what the packet-wide walk
-    does: every node and row the packet entered, times its 1024 lanes."""
-    o, d, valid, block_root, bounds, meta, tri, t_far = args[:8]
+    of its fp32 operations over the fp32 peak and its bytes (launch_bytes)
+    over the memory rate. The operations are what the rays need on their
+    own, whatever group they are walked in: a root test per live lane, two
+    node tests per inner node a lane's own slab test passed, the rows of
+    every leaf its own test passed (the kernel counts them).
+    `packet_bound_ms` counts instead what the packet-wide walk does: every
+    node and row the packet entered, times its 1024 lanes."""
     flops = (NODE_FLOPS * int(res.lane_node_tests.sum())
              + TRI_FLOPS * int(res.lane_tri_rows.sum()))
-    packet_flops = (NODE_FLOPS * packet_visits
-                    + TRI_FLOPS * packet_rows) * bt.PACKET
-    n = o.shape[0]
-    nbytes = (sum(x.numel() * x.element_size() for x in
-                  (o, d, valid, block_root, bounds, meta, tri, t_far))
-              + n * 16)
+    packet_flops = (NODE_FLOPS * held["packet_walk"]["node_visits"]
+                    + TRI_FLOPS * held["packet_walk"]["tri_rows"]) * bt.PACKET
+    nbytes = launch_bytes(args, held["table_reads"])
     t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
     return dict(bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
@@ -422,7 +601,7 @@ def _disagreement(k, p, live, any_hit: bool) -> tuple:
                  non_tie_mismatches=int((mism & ~ties).sum())))
 
 
-def hold_traversal(args, name: str) -> dict:
+def hold_traversal(args, name: str, launch=None) -> dict:
     """The kernel (a vote per warp) against the plain version on the same
     inputs, twice. Against the packet-wide vote, the TPU kernel's walk:
     this decides whether the warp walk computes the same function on these
@@ -435,14 +614,17 @@ def hold_traversal(args, name: str) -> dict:
     p = bt.bvh_intersect_plain(*args)
     torch.cuda.synchronize()
     plain_s = time.time() - t0
-    g = bt.bvh_intersect_plain(*args, group=k.group)
+    reads = torch.zeros((args[4].shape[0],), dtype=torch.uint8,
+                        device=args[0].device)
+    g = bt.bvh_intersect_plain(*args, group=k.group, reads=reads)
     live = args[2] != 0
     ok, err, extra = _disagreement(k, p, live, any_hit)
     ok_g, err_g, extra_g = _disagreement(k, g, live, any_hit)
     counts_equal = all(
         torch.equal(getattr(k, f), getattr(g, f)) for f in
         ("node_visits", "tri_rows", "lane_node_tests", "lane_tri_rows"))
-    rec = dict(kernel=name, rays=int(args[0].shape[0]),
+    rec = dict(kernel=name, **({} if launch is None else {"launch": launch}),
+               rays=int(args[0].shape[0]),
                blocks=int(args[3].numel()),
                live_blocks=int((args[3] >= 0).sum()),
                walk=dict(group=k.group, node_visits=int(k.node_visits.sum()),
@@ -452,12 +634,15 @@ def hold_traversal(args, name: str) -> dict:
                packet_walk=dict(group=p.group,
                                 node_visits=int(p.node_visits.sum()),
                                 tri_rows=int(p.tri_rows.sum())),
+               table_reads=dict(nodes=int(((reads & 1) != 0).sum()),
+                                rows=int(args[5][(reads & 2) != 0, 1].sum())),
                max_abs_err=max(err, err_g), plain_s=plain_s,
                vs_same_group=dict(counts_equal=counts_equal, **extra_g),
                ok=ok and ok_g and counts_equal, **extra)
     log("hold_" + name, **rec)
     if not rec["ok"]:
-        raise SystemExit(f"{name}: kernel disagrees with the plain version")
+        raise SystemExit(f"{name} {launch or ''}: kernel disagrees with the "
+                         "plain version")
     return rec
 
 
@@ -470,6 +655,417 @@ def compare_frames(a: torch.Tensor, b: torch.Tensor, w: int, h: int) -> dict:
                 float_max=float(d.max()), float_mean=float(d.mean()),
                 finite=bool(np.isfinite(a).all()),
                 coverage=float(np.mean(a[:, :3].sum(axis=1) > 0)))
+
+
+# ---------------------------------------------------------------------------
+# the multi-instance and looped surface tracers
+
+# the tolerance of tests/torch_parity.py::assert_multi_close (XLA contracts
+# a*b+c into FMAs on the CPU; the port does not)
+MULTI_GOLDEN_TOL = dict(pix_over_1e5=1e-3, float_mean=1e-4, byte_frac=5e-3)
+MULTI_PLAIN_FILM = 128        # the many-domain frames' plain twins
+
+
+def observe_frame(fn) -> tuple:
+    """Run fn() once with every traversal launch observed (the main path
+    runs unchanged; the observer only records): per launch its kind, its
+    live blocks (read after the frame) and its device time by CUDA events
+    around it; the calls of _intersect_bvh with and without shadow lanes
+    and of trace_round (the rounds the frame ran); and the host syncs, by
+    torch.cuda's sync debug mode. Returns (fn(), stats)."""
+    import warnings
+
+    launches, calls = [], {"closest_only": 0, "with_shadow": 0, "rounds": 0}
+    orig_k, orig_i, orig_r = (bt.bvh_intersect_kernel, tr._intersect_bvh,
+                              tr.trace_round)
+
+    def kernel(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig_k(*args)
+        stop.record()
+        launches.append((bool(args[8]), args[3].clone(), start, stop))
+        return out
+
+    def intersect(*args, is_shadow=None, **kw):
+        calls["closest_only" if is_shadow is None else "with_shadow"] += 1
+        return orig_i(*args, is_shadow=is_shadow, **kw)
+
+    def round_(*args, **kw):
+        calls["rounds"] += 1
+        return orig_r(*args, **kw)
+
+    bt.bvh_intersect_kernel, tr._intersect_bvh, tr.trace_round = (
+        kernel, intersect, round_)
+    torch.cuda.synchronize()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode(1)
+            try:
+                out = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    finally:
+        bt.bvh_intersect_kernel, tr._intersect_bvh, tr.trace_round = (
+            orig_k, orig_i, orig_r)
+    torch.cuda.synchronize()
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    per = [dict(any_hit=a, live_blocks=int((root >= 0).sum()),
+                ms=s0.elapsed_time(s1)) for a, root, s0, s1 in launches]
+    kinds = {"closest": [p for p in per if not p["any_hit"]],
+             "any_hit": [p for p in per if p["any_hit"]]}
+    return out, dict(
+        calls=calls, host_syncs=syncs,
+        launches={k: len(v) for k, v in kinds.items()},
+        empty_launches={k: sum(p["live_blocks"] == 0 for p in v)
+                        for k, v in kinds.items()},
+        kernel_ms=sum(p["ms"] for p in per),
+        live_blocks={k: [p["live_blocks"] for p in v]
+                     for k, v in kinds.items()})
+
+
+def capture_live(fn, want: dict) -> dict:
+    """Run fn() and return {(kind, k): launch arguments} for the k-th launch
+    of each kind ("closest" / "any_hit") that has a live block, for the
+    (kind, k) pairs in `want`."""
+    seen, count = {}, {"closest": 0, "any_hit": 0}
+    orig = bt.bvh_intersect_kernel
+
+    def record(*args):
+        kind = "any_hit" if args[8] else "closest"
+        if bool((args[3] >= 0).any()):
+            if (kind, count[kind]) in want:
+                seen[(kind, count[kind])] = tuple(
+                    a.clone() if torch.is_tensor(a) else a for a in args)
+            count[kind] += 1
+        return orig(*args)
+
+    bt.bvh_intersect_kernel = record
+    try:
+        fn()
+    finally:
+        bt.bvh_intersect_kernel = orig
+    torch.cuda.synchronize()
+    missing = set(want) - set(seen)
+    if missing:
+        raise SystemExit(f"no live launch {sorted(missing)} in the frame")
+    return seen
+
+
+def expected_launches(kind: str, meshes: int, calls: dict) -> dict:
+    """Launches per frame from the code and the rounds the frame ran.
+    fast-multi: phase A calls _intersect_bvh without shadow lanes (rA
+    calls), phase C with all lanes shadow (rC calls); the looped tracer
+    calls it twice a round (the mixed wavefront, the spawn matrix), both
+    with shadow lanes. A call is one closest launch and, given shadow
+    lanes, one any-hit launch with the pack; M of each in place."""
+    per = 1 if meshes > tr.INPLACE_MESH_LIMIT else meshes
+    if kind == "fast_multi":
+        ra, rc = calls["closest_only"], calls["with_shadow"]
+        return {"closest": per * (ra + rc), "any_hit": per * rc}
+    r = calls["rounds"]
+    if calls["with_shadow"] != 2 * r or calls["closest_only"]:
+        raise SystemExit(f"looped frame: unexpected calls {calls}")
+    return {"closest": 2 * per * r, "any_hit": 2 * per * r}
+
+
+def multi_frame(name: str, kind: str, meshes: int, fn, plain_fn,
+                film: list, plain_film: list, main_counts: dict) -> tuple:
+    """Drive one slice C frame with the launch counts at 0 just before and
+    read just after; check them against the formula from the rounds the
+    frame ran (an observed second run, which must give the same bytes: the
+    looped tracer's scatter deposits may differ in the last float bit), and
+    hold the frame's plain twin against the kernel frame at
+    `plain_film`."""
+    bt.reset_launch_counts()
+    fb = fn()
+    torch.cuda.synchronize()
+    counts = {"closest": bt.launches_closest, "any_hit": bt.launches_any_hit}
+    for k in counts:
+        main_counts[k] += counts[k]
+    again, stats = observe_frame(fn)
+    expect = expected_launches(kind, meshes, stats["calls"])
+    W, H = film
+    cmp_plain = compare_frames(*plain_fn(), *plain_film)
+    same_run = compare_frames(fb, again, W, H)
+    coverage = float((fb[:, :3].sum(dim=1) > 0).float().mean())
+    ok = (counts == expect == stats["launches"] and cmp_plain["finite"]
+          and bool(torch.isfinite(fb).all()) and coverage > 0.05
+          and cmp_plain["byte_frac"] <= 1e-4 and same_run["byte_frac"] <= 1e-4)
+    log("frame_multi", frame=name, tracer=kind, meshes=meshes, film=film,
+        launches=counts, expected=expect, rounds=stats["calls"],
+        empty_launches=stats["empty_launches"],
+        host_syncs=stats["host_syncs"], plain_film=plain_film,
+        vs_plain=cmp_plain, rerun=same_run, coverage=coverage,
+        tolerance=dict(byte_frac=1e-4), ok=ok)
+    if not ok:
+        raise SystemExit(f"frame_multi {name} failed")
+    return fb, stats
+
+
+def split_frame(fn) -> dict:
+    """Host wall time of one fn() spent inside the tracer's instance search
+    (_next_instance: the scan or the tree walk), the BVH dispatch
+    (_intersect_bvh: the pack or the passes, and the launches), the brute
+    intersector (intersect_closest) and the shading
+    (_process_surface_hits), each call closed by a synchronize; `rest` is
+    the frame's remainder (arena selects, compaction, deposit)."""
+    names = ("_next_instance", "_intersect_bvh", "intersect_closest",
+             "_process_surface_hits")
+    spent = dict.fromkeys(names, 0.0)
+    origs = {k: getattr(tr, k) for k in names}
+
+    def timed(key):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = origs[key](*args, **kw)
+            torch.cuda.synchronize()
+            spent[key] += (time.perf_counter() - t0) * 1e3
+            return out
+        return call
+
+    for k in names:
+        setattr(tr, k, timed(k))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        for k, f in origs.items():
+            setattr(tr, k, f)
+    return dict(total_ms=total, instance_search_ms=spent["_next_instance"],
+                bvh_dispatch_ms=spent["_intersect_bvh"],
+                brute_ms=spent["intersect_closest"],
+                shade_ms=spent["_process_surface_hits"],
+                rest_ms=total - sum(spent.values()))
+
+
+def time_multi_frame(name: str, fn, stats: dict, card: str, rays: int,
+                     reps: int) -> dict:
+    """ms eager (CUDA events; the frame's host syncs inside), host ms; from
+    the observed run: syncs, rounds, launches (empty ones apart) and
+    `kernel_ms_events`, CUDA events around each traversal call (an upper
+    bound: a host-paced stream waits inside the pair); from torch.profiler:
+    the traversal kernels' device time (`kernel_ms`, its share of the
+    frame), all kernels' (`device_busy_ms`, the idle share), operator
+    calls and kernel launches; where the host's time goes (split_frame).
+    No CUDA-graph replay: the loops' lengths depend on the data."""
+    ms = cuda_ms(fn, reps=reps, warmup=1)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    hc = host_counts(fn, reps=1)
+    dev_ms, trav_ms = hc["device_ms"], hc["traversal_device_ms"]
+    rec = dict(ms=ms, host_ms=host_ms, host_syncs=stats["host_syncs"],
+               launches=stats["launches"],
+               empty_launches=stats["empty_launches"],
+               rounds=stats["calls"], kernel_ms=trav_ms,
+               kernel_share=None if trav_ms is None else trav_ms / ms,
+               device_busy_ms=dev_ms,
+               device_idle_share=None if dev_ms is None else 1 - dev_ms / ms,
+               kernel_ms_events=stats["kernel_ms"],
+               rays_per_s=rays / ms * 1e3, graph_ms=None,
+               aten_ops=hc["aten_ops"], kernel_launches=hc["kernel_launches"],
+               top_kernels=hc["top_kernels"], split=split_frame(fn))
+    log("time_frame", frame=name, card=card, **rec)
+    return rec
+
+
+def multi_phases(dev, card: str, occupancy: dict, film: int = 512,
+                 plain_film: int = MULTI_PLAIN_FILM) -> dict:
+    """Every slice C phase: SimpleApp (the reference's gvtSimple; BVH
+    in place over its two meshes, as bench_inner.py --simple passes it, and
+    the brute path through render_surface) and the many-domain scene
+    (make_multi_scene: the instance tree and the segment-aligned pack)
+    through fast-multi and the looped tracer. Returns the main path's
+    launch counts and the held launches' records."""
+    W = H = film
+    t0 = time.time()
+    simple = simple_app(W, H)
+    sscene = build_scene(simple.meshes, simple.instances, simple.lights,
+                         device=dev)
+    sacc = build_scene_bvh(simple.meshes, device=dev)
+    srays = simple.camera.generate_rays(dev)
+    multi = {d: make_multi_scene(0, W, H, max_depth=d) for d in (1, 2)}
+    mspec = multi[1]
+    mscene = build_scene(mspec.meshes, mspec.instances, mspec.lights,
+                         device=dev)
+    macc = build_scene_bvh(mspec.meshes, device=dev)
+    mrays = {d: multi[d].camera.generate_rays(dev) for d in (1, 2)}
+    log("multi_scenes", film=[W, H], setup_s=time.time() - t0,
+        simple=dict(instances=sscene.num_instances,
+                    meshes=sscene.num_meshes,
+                    triangles=sscene.num_triangles,
+                    bvh_gate=sscene.num_triangles >= 512,
+                    tree=sscene.inst_bvh is not None),
+        many_domain=dict(instances=mscene.num_instances,
+                         meshes=mscene.num_meshes,
+                         triangles=mscene.num_triangles,
+                         tree_nodes=mscene.inst_bvh.num_nodes,
+                         tri_table_mb=macc.tri.numel() * 4 / 2**20,
+                         pack=mscene.num_meshes > tr.INPLACE_MESH_LIMIT))
+    if mscene.inst_bvh is None or sscene.inst_bvh is not None:
+        raise SystemExit("the instance tree is not where it should be")
+
+    def simple_fast(impl=None):
+        return trace_image_fast_multi(sscene, srays, W, H, accel=sacc,
+                                      impl=impl)
+
+    def simple_looped(impl=None):
+        return trace_image(sscene, make_arena(srays, 1), W, H,
+                           max_rounds=64, accel=sacc, impl=impl)
+
+    def many(depth, impl=None, size=film):
+        cam = dataclasses.replace(mspec.camera, film_width=size,
+                                  film_height=size, max_depth=depth)
+        return render_surface(mspec.meshes, mspec.instances, mspec.lights,
+                              cam, device=dev, impl=impl)
+
+    def many_fast(depth):
+        return trace_image_fast_multi(mscene, mrays[depth], W, H,
+                                      accel=macc)
+
+    def many_looped():
+        return trace_image(mscene, make_arena(mrays[2], 2), W, H,
+                           accel=macc)
+
+    # ---- the kernels on their new launch shapes --------------------------
+    held = {}
+    picks = (
+        ("pack_fast_multi", lambda: many_fast(1),
+         {("closest", 0): "phase A round 0: blocks of 10 meshes side by "
+                          "side", ("any_hit", 0): "phase C round 0"}),
+        ("pack_looped_depth2", many_looped,
+         {("closest", 1): "round 1: primary and bounced lanes",
+          ("any_hit", 1): "round 1: shadow blocks of the mixed pack"}),
+        ("inplace_simple", simple_fast,
+         {("closest", 0): "phase A round 0, mesh 0 (cone)",
+          ("any_hit", 1): "phase C round 0, mesh 1 (cube)"}),
+    )
+    for frame, fn, want in picks:
+        for (kind, k), args in capture_live(fn, want).items():
+            name = "K2_multi" if kind == "any_hit" else "K1_multi"
+            what = want[(kind, k)]
+            rec = hold_traversal(args, name, launch=f"{frame}/{kind}{k}")
+            rec["args"] = args
+            rec["what"] = what
+            held[f"{frame}/{kind}{k}"] = rec
+    del picks
+
+    # ---- the frames, through the entry points -----------------------------
+    main_counts = {"closest": 0, "any_hit": 0}
+    frames = {}
+    fb_fast, st = multi_frame(
+        "simple_fast_multi", "fast_multi", 2, simple_fast,
+        lambda: (simple_fast(), simple_fast("plain")), [W, H], [W, H],
+        main_counts)
+    frames["simple_fast_multi"] = (simple_fast, st)
+    fb_loop, st = multi_frame(
+        "simple_looped", "looped", 2, simple_looped,
+        lambda: (simple_looped(), simple_looped("plain")), [W, H], [W, H],
+        main_counts)
+    frames["simple_looped"] = (simple_looped, st)
+    equal = bool(torch.equal(fb_fast, fb_loop))
+    log("frame_multi_fast_vs_looped", frame="simple", film=[W, H],
+        bit_equal=equal, vs=compare_frames(fb_fast, fb_loop, W, H), ok=equal)
+    if not equal:
+        raise SystemExit("SimpleApp: fast-multi and looped differ on the card")
+    # SimpleApp through render_surface: 18 triangles, the brute path
+    bt.reset_launch_counts()
+    fb_brute = render_surface(simple.meshes, simple.instances, simple.lights,
+                              simple.camera, device=dev)
+    torch.cuda.synchronize()
+    counts = {"closest": bt.launches_closest, "any_hit": bt.launches_any_hit}
+    cmp = compare_frames(fb_brute, fb_fast, W, H)
+    ok = counts == {"closest": 0, "any_hit": 0} and cmp["byte_frac"] <= 1e-4
+    log("frame_multi", frame="simple_render_surface_brute",
+        tracer="fast_multi", launches=counts,
+        expected={"closest": 0, "any_hit": 0}, vs_bvh_frame=cmp,
+        tolerance=dict(byte_frac=1e-4), ok=ok)
+    if not ok:
+        raise SystemExit("SimpleApp brute frame failed")
+    frames["simple_brute"] = (lambda: trace_image_fast_multi(
+        sscene, srays, W, H), None)
+    del fb_brute, fb_loop, fb_fast
+    for depth, kind in ((1, "fast_multi"), (2, "looped")):
+        _, st = multi_frame(
+            f"many_domain_depth{depth}", kind,
+            mscene.num_meshes, lambda: many(depth),
+            lambda: (many(depth, size=plain_film),
+                     many(depth, "plain", size=plain_film)),
+            [W, H], [plain_film, plain_film], main_counts)
+        frames[f"many_domain_depth{depth}"] = (
+            (lambda: many_fast(1)) if depth == 1 else many_looped, st)
+
+    # ---- against the JAX package's committed frames -----------------------
+    gold = np.load(MULTI_GOLDEN)
+    g = int(gold["film"])
+    gspecs = {"simple_fast": simple_app(g, g),
+              "simple_looped2": simple_app(g, g, max_depth=2),
+              "cube_area": cube_row(CUBE_AREA_LIGHTS, film=g),
+              "multi": make_multi_scene(0, g, g)}
+    for name, spec in gspecs.items():
+        fb = render_surface(spec.meshes, spec.instances, spec.lights,
+                            spec.camera, device=dev).cpu().numpy()
+        ref = gold[f"fb_{name}"]
+        dpix = np.abs(fb[:, :3] - ref[:, :3]).max(axis=1)
+        cmp = dict(byte_frac=float(np.mean(img.to_rgb8(fb, g, g)
+                                           != img.to_rgb8(ref, g, g))),
+                   pix_over_1e5=float(np.mean(dpix > 1e-5)),
+                   float_mean=float(dpix.mean()), float_max=float(dpix.max()),
+                   finite=bool(np.isfinite(fb).all()))
+        ok = cmp["finite"] and all(cmp[k] <= v
+                                   for k, v in MULTI_GOLDEN_TOL.items())
+        log("golden_multi", frame=name, film=[g, g], vs_jax=cmp,
+            tolerance=MULTI_GOLDEN_TOL, ok=ok)
+        if not ok:
+            raise SystemExit(f"golden_multi {name} failed")
+
+    # ---- times ------------------------------------------------------------
+    # `ms` times the wrapper call back to back by CUDA events, which a slow
+    # host paces when the kernel is short; `graph_ms` replays the same
+    # launch from a CUDA graph: the card's time alone
+    for key, rec in held.items():
+        args = rec["args"]
+        res = bt.bvh_intersect_kernel(*args)
+        ms = cuda_ms(lambda: bt.bvh_intersect_kernel(*args), reps=20)
+        g_ms, g_equal = graph_ms(lambda: bt.bvh_intersect_kernel(*args).prim)
+        bound = bound_ms(args, res, rec)
+        rec["ms"], rec["graph_ms"], rec["bound"] = ms, g_ms, bound
+        log("time_launch", launch=key, what=rec["what"], card=card, ms=ms,
+            graph_ms=g_ms, graph_equals_eager=g_equal,
+            share_of_bound=bound["bound_ms"] / g_ms,
+            share_of_packet_bound=bound["packet_bound_ms"] / g_ms, **bound,
+            rays=int(args[0].shape[0]),
+            live_blocks=int((args[3] >= 0).sum()), **rec["walk"])
+        log("launch_shape", launch=key, **launch_shape(res, occupancy))
+        if not (bound["bound_ms"] <= g_ms and g_equal):
+            raise SystemExit(f"{key}: faster than its bound, or the replay "
+                             "differs")
+    # a launch with no live block, as the passes without lanes of their
+    # kind make (SimpleApp's camera launch with every root -1)
+    empty = list(held["inplace_simple/closest0"]["args"])
+    empty[3] = torch.full_like(empty[3], -1)
+    ms = cuda_ms(lambda: bt.bvh_intersect_kernel(*empty), reps=20)
+    g_ms, _ = graph_ms(lambda: bt.bvh_intersect_kernel(*empty).prim)
+    log("time_launch", launch="empty", card=card, ms=ms, graph_ms=g_ms,
+        rays=int(empty[0].shape[0]), live_blocks=0)
+    for name, (fn, st) in frames.items():
+        if st is None:
+            _, st = observe_frame(fn)
+        time_multi_frame(name, fn, st, card, W * H,
+                         reps=3 if "looped" in name or "depth2" in name
+                         else 5)
+    for rec in held.values():
+        del rec["args"]
+    return dict(counts=main_counts, held=held)
 
 
 # ---------------------------------------------------------------------------
@@ -1056,8 +1652,7 @@ def main() -> int:
             ("K3_subset", k3_args, k3)):
         res = bt.bvh_intersect_kernel(*args)
         ms = cuda_ms(lambda: bt.bvh_intersect_kernel(*args), reps=20)
-        bound = bound_ms(args, res, held["packet_walk"]["node_visits"],
-                         held["packet_walk"]["tri_rows"])
+        bound = bound_ms(args, res, held)
         launch[name] = dict(
             ms=ms, share_of_bound=bound["bound_ms"] / ms,
             share_of_packet_bound=bound["packet_bound_ms"] / ms, **bound,
@@ -1101,6 +1696,12 @@ def main() -> int:
             **host_counts(frame))
         if not replay_equal:
             raise SystemExit(f"depth {depth}: the graph replay differs")
+    del scene, accel, rays, frames
+
+    # ---- slice C: the multi-instance and looped tracers ------------------
+    multi = multi_phases(dev, card, occupancy)
+    for k in main_counts:
+        main_counts[k] += multi["counts"][k]
     kernel_rows = [dict(
         name=name, route="cuda", source="gravit_tpu_torch/csrc/bvh_traverse.cu",
         replaces="gravit_tpu/ops/pallas_bvh.py:35", launches=launches,
@@ -1115,7 +1716,6 @@ def main() -> int:
              main_counts["any_hit"]),
             ("bvh_traverse (table over 6 MB, K3)", "K3_subset", k3,
              k3_launches))]
-    del scene, accel, rays, frames
 
     kernel_rows += volume_phases(dev, card)
     log("done", seconds=time.time() - t_start)

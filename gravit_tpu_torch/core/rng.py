@@ -33,10 +33,15 @@ def _mix(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def round_extra(round_idx: int, depth: torch.Tensor) -> torch.Tensor:
+def round_extra(round_idx, depth: torch.Tensor) -> torch.Tensor:
     """uint32(round) * 2654435761 + uint32(depth) * 40503, wrapped to 32
-    bits: the per-generation decorrelation counter of the tracer."""
-    r = (int(round_idx) * 2654435761) & MASK32
+    bits: the per-generation decorrelation counter of the tracer.
+    `round_idx` is an int (the wavefront round) or a per-lane tensor (the
+    multi-instance megapass passes each ray's freeze round)."""
+    if isinstance(round_idx, torch.Tensor):
+        r = _mul32(round_idx.to(torch.int64) & MASK32, 2654435761)
+    else:
+        r = (int(round_idx) * 2654435761) & MASK32
     return (r + _mul32(depth.to(torch.int64) & MASK32, 40503)) & MASK32
 
 

@@ -10,11 +10,12 @@ native builder orders leaf triangles differently from the numpy builder.
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
 
+from gravit_tpu_torch.accel.instance_bvh import InstanceBVH
 from gravit_tpu_torch.accel.scene_accel import SceneBVH
 from gravit_tpu_torch.core.rays import RayArena
 from gravit_tpu_torch.device import resolve_device
@@ -32,15 +33,26 @@ def _tensors(cls, arrays: Mapping[str, np.ndarray], names, device):
 
 
 def scene_from_numpy(arrays: Mapping[str, np.ndarray], device=None,
+                     inst_bvh: Optional[Mapping[str, np.ndarray]] = None,
                      **static) -> SceneData:
-    """SceneData from its tensor fields as numpy arrays; `static` names
+    """SceneData from its tensor fields as numpy arrays; `inst_bvh` holds
+    the instance tree's arrays (None: no tree); `static` names
     num_instances, num_lights, ... (gravit_tpu's non-pytree fields)."""
     device = resolve_device(device)
     unknown = set(static) - set(STATIC_FIELDS)
     if unknown:
         raise TypeError(f"unknown static fields {sorted(unknown)}")
+    tree = (None if inst_bvh is None
+            else instance_bvh_from_numpy(inst_bvh, device))
     return SceneData(**_tensors(SceneData, arrays, TENSOR_FIELDS, device),
-                     **static)
+                     inst_bvh=tree, **static)
+
+
+def instance_bvh_from_numpy(arrays: Mapping[str, np.ndarray],
+                            device=None) -> InstanceBVH:
+    device = resolve_device(device)
+    names = [f.name for f in dataclasses.fields(InstanceBVH)]
+    return InstanceBVH(**_tensors(InstanceBVH, arrays, names, device))
 
 
 def bvh_from_numpy(arrays: Mapping[str, np.ndarray], num_meshes: int,

@@ -124,14 +124,18 @@ def _check(o, d, valid, block_root, bounds, meta, tri, t_far) -> None:
 
 
 def bvh_intersect_plain(o, d, valid, block_root, bounds, meta, tri, t_far,
-                       any_hit: bool = False, group: int = PACKET) -> Traversal:
+                       any_hit: bool = False, group: int = PACKET,
+                       reads=None) -> Traversal:
     """The traversal vectorized over voting groups of `group` consecutive
     lanes: a stack `(ng, STACK_DEPTH)`, a stack pointer and a visit count
     per group, and a Python loop until every group is done. Same
     arithmetic, in the same order, as the kernel. `group=PACKET` is the
     TPU kernel's walk (one vote per packet), `group=GROUP` the CUDA
     kernel's (one vote per warp); both take the near child from the
-    PACKET's summed direction, so both visit leaves in one order."""
+    PACKET's summed direction, so both visit leaves in one order.
+    `reads`, if given, is an (Nn,) uint8 tensor of zeros in which the walk
+    marks what it read of the tables: it ORs 1 into every node a group
+    popped and 2 into every leaf whose rows a group tested."""
     _check(o, d, valid, block_root, bounds, meta, tri, t_far)
     if group < 1 or PACKET % group:
         raise ValueError(f"group must divide {PACKET}, got {group}")
@@ -178,6 +182,8 @@ def bvh_intersect_plain(o, d, valid, block_root, bounds, meta, tri, t_far,
         visits[act] += 1
         spa = sp[act] - 1
         node = stack[act, spa]
+        if reads is not None:
+            reads[node] |= 1
         bnd = bounds[node]
         o_a = [x[act] for x in oc]
         inv_a = [x[act] for x in inv]
@@ -208,6 +214,8 @@ def bvh_intersect_plain(o, d, valid, block_root, bounds, meta, tri, t_far,
         leaf = enter & is_leaf
         if bool(leaf.any()):
             la = act[leaf]
+            if reads is not None:
+                reads[node[leaf]] |= 2
             count = m[leaf, 1].to(i32)
             rows_tested[la] += count
             own_rows[la] += count * passed[leaf]

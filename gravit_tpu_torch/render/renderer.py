@@ -3,8 +3,7 @@ Renderer.render (render/Renderer.cpp:37-115), one function each, off the
 multi-device arm.
 
 The scheduler enum, the RenderContext database and the api facade are
-ROADMAP slice E; surface scenes off the single-instance megapass are
-slice C; the volume-domain scheduler is slice D.
+ROADMAP slice E; the domain and volume-domain schedulers are slice D.
 """
 
 from __future__ import annotations
@@ -17,7 +16,8 @@ from gravit_tpu_torch.accel.scene_accel import build_scene_bvh
 from gravit_tpu_torch.device import resolve_device
 from gravit_tpu_torch.render.scene_build import Instance, build_scene
 from gravit_tpu_torch.render.tracer import (MAX_FAST_DEPTH, make_arena,
-                                            trace_image_fast)
+                                            trace_image, trace_image_fast,
+                                            trace_image_fast_multi)
 from gravit_tpu_torch.render.volume_scene import build_volume_scene
 from gravit_tpu_torch.render.volume_tracer import (can_slice_march,
                                                    slice_axes_for,
@@ -37,31 +37,37 @@ def render_surface(meshes: Sequence[CompiledMesh],
                    instances: Sequence[Instance], lights: Sequence[Light],
                    camera: PerspectiveCamera, device=None, impl=None):
     """Build the scene (and the BVH when the meshes hold 512 or more
-    triangles), then render one frame with the single-instance megapass.
+    triangles), then render one frame; the single-device branch of the
+    reference's Renderer (renderer.py:200-227):
+      one instance, max_depth <= 6   trace_image_fast
+      otherwise, max_depth <= 1      trace_image_fast_multi
+      otherwise                      make_arena + trace_image (looped)
     Returns the (W*H, 4) framebuffer on `device`.
 
-    The gate is `1 <= max_depth <= 6`: max_depth 0 raises here instead of
+    The gate is `1 <= max_depth`: max_depth 0 raises here instead of
     reaching the reference's IndexError. The BVH path runs the traversal
     kernel on the card and its plain version on the CPU. `impl="plain"`
     forces the plain version on the card (comparisons only).
     """
     device = resolve_device(device)
-    if len(instances) != 1:
+    if camera.max_depth < 1:
         raise NotImplementedError(
-            "multi-instance rendering (trace_image_fast_multi, trace_image) "
-            "is not ported yet (ROADMAP slice C)")
-    if not 1 <= camera.max_depth <= MAX_FAST_DEPTH:
-        raise NotImplementedError(
-            f"max_depth {camera.max_depth}: the megapass covers "
-            f"1..{MAX_FAST_DEPTH}; the looped tracer is ROADMAP slice C")
+            f"max_depth {camera.max_depth}: a frame needs max_depth >= 1")
     scene = build_scene(meshes, instances, lights, device=device)
     accel = None
     if sum(m.num_triangles for m in meshes) >= BVH_MIN_TRIANGLES:
         accel = build_scene_bvh(meshes, device=device)
-    return trace_image_fast(scene, camera.generate_rays(device),
-                            camera.film_width, camera.film_height,
-                            accel=accel, samples=camera.samples,
-                            max_depth=camera.max_depth, impl=impl)
+    rays = camera.generate_rays(device)
+    W, H = camera.film_width, camera.film_height
+    if scene.num_instances == 1 and camera.max_depth <= MAX_FAST_DEPTH:
+        return trace_image_fast(scene, rays, W, H, accel=accel,
+                                samples=camera.samples,
+                                max_depth=camera.max_depth, impl=impl)
+    if camera.max_depth <= 1:
+        return trace_image_fast_multi(scene, rays, W, H, accel=accel,
+                                      samples=camera.samples, impl=impl)
+    return trace_image(scene, make_arena(rays, scene.num_lights), W, H,
+                       accel=accel, impl=impl)
 
 
 def render_volume(volumes: Sequence[Volume],

@@ -14,13 +14,15 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from gravit_tpu_torch.accel.instance_bvh import (InstanceBVH,
+                                                 build_instance_bvh)
 from gravit_tpu_torch.core import math3d
 from gravit_tpu_torch.device import resolve_device
 from gravit_tpu_torch.scene.light import Light, bundle_lights
 from gravit_tpu_torch.scene.mesh import CompiledMesh
 
-# instance counts at or above this take the instance-BVH shuffle in the
-# reference (scene_build.py:198-204); the port has not carried it over yet
+# instance counts at or above this build the instance BVH for the shuffle
+# (scene_build.py:198-204)
 INSTANCE_BVH_THRESHOLD = 64
 
 
@@ -64,6 +66,9 @@ class SceneData:
     lights_w: torch.Tensor      # (L, 3)
     lights_wh: torch.Tensor     # (L, 2)
 
+    # the instance tree of the shuffle (None: the scan over instances)
+    inst_bvh: Optional[InstanceBVH] = None
+
     # static metadata
     num_instances: int = 0
     num_lights: int = 0
@@ -82,7 +87,7 @@ class SceneData:
 TENSOR_FIELDS = tuple(f.name for f in dataclasses.fields(SceneData)
                       if f.type == "torch.Tensor")
 STATIC_FIELDS = tuple(f.name for f in dataclasses.fields(SceneData)
-                      if f.type != "torch.Tensor")
+                      if f.type != "torch.Tensor" and f.name != "inst_bvh")
 
 
 @dataclasses.dataclass
@@ -95,12 +100,12 @@ def build_scene(meshes: Sequence[CompiledMesh],
                 instances: Sequence[Instance],
                 lights: Sequence[Light],
                 pad_tris_to: Optional[int] = None,
-                device=None) -> SceneData:
+                device=None, instance_bvh: Optional[bool] = None
+                ) -> SceneData:
+    """`instance_bvh=None` builds the instance tree from
+    INSTANCE_BVH_THRESHOLD instances on; True / False force it on / off.
+    It is never built for one instance."""
     device = resolve_device(device)
-    if len(instances) >= INSTANCE_BVH_THRESHOLD:
-        raise NotImplementedError(
-            f"{len(instances)} instances need the instance-BVH shuffle, "
-            "which is not ported yet (ROADMAP slice C)")
     offsets, counts = [], []
     off = 0
     for m in meshes:
@@ -183,8 +188,15 @@ def build_scene(meshes: Sequence[CompiledMesh],
         lights_u=lb.u, lights_w=lb.w,
         lights_wh=np.stack([lb.width, lb.height], axis=-1),
     )
+    if instance_bvh is None:
+        instance_bvh = len(instances) >= INSTANCE_BVH_THRESHOLD
+    ibvh = None
+    if instance_bvh and len(instances) > 1:
+        ibvh = build_instance_bvh(arrays["inst_lo"], arrays["inst_hi"],
+                                  device=device)
     mat = arrays["tri_mat_type"]
     return SceneData(
+        inst_bvh=ibvh,
         **{k: torch.as_tensor(np.ascontiguousarray(a), device=device)
            for k, a in arrays.items()},
         num_instances=len(instances),

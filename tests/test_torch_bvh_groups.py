@@ -272,6 +272,56 @@ def test_lane_counts_are_the_single_ray_walk():
     assert int(p.lane_node_tests.sum()) >= int(g.lane_node_tests.sum())
 
 
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_table_reads(any_hit):
+    """`reads` marks the nodes a walk popped and the leaves whose rows it
+    tested, and changes nothing else: a narrower group reads a subset of
+    what a wider one reads, a leaf is tested only after it is popped, and
+    a launch whose roots are all -1 reads nothing. chip_smoke's byte count
+    of a launch follows from these marks."""
+    cm = random_mesh(6, 180)
+    o, d, valid = wavefront(6, cm.bounds_min, cm.bounds_max, live_frac=0.6)
+    tables = tables_jax(cm)
+    t = lambda a: torch.as_tensor(a)  # noqa: E731
+    nodes = tables[0].shape[0]
+    far = torch.full((o.shape[0],), bt.FLT_MAX)
+
+    def walk(roots, group):
+        args = (t(o), t(d), t(valid), t(roots), *(t(x) for x in tables), far,
+                any_hit)
+        reads = torch.zeros((nodes,), dtype=torch.uint8)
+        r = bt.bvh_intersect_plain(*args, group=group, reads=reads)
+        plain = bt.bvh_intersect_plain(*args, group=group)
+        for a, b in zip(r[:8], plain[:8]):
+            assert torch.equal(a, b)
+        return r, reads
+
+    roots = np.array([0, 0, -1, 0], np.int32)
+    marks = {}
+    for group in (1, bt.GROUP, bt.PACKET):
+        r, marks[group] = walk(roots, group)
+        popped, entered = (marks[group] & 1) != 0, (marks[group] & 2) != 0
+        assert bool(popped[0]) and not bool((entered & ~popped).any())
+        assert 0 < int(popped.sum()) <= int(r.node_visits.sum())
+        meta = torch.as_tensor(tables[1])
+        assert 0 < int(meta[entered, 1].sum()) <= int(r.tri_rows.sum())
+        assert bool((meta[entered, 2] > 0).all())           # leaves only
+    for narrow, wide in ((1, bt.GROUP), (bt.GROUP, bt.PACKET)):
+        assert not bool((marks[narrow] & ~marks[wide]).any())
+    _, none = walk(np.full(NB, -1, np.int32), bt.GROUP)
+    assert not bool(none.any())
+    # the launch's bytes: 20 a lane and 4 a block, the live blocks' rays,
+    # the nodes and rows read
+    args = (t(o), t(d), t(valid), t(roots))
+    live = int((t(valid).reshape(NB, -1)[t(roots) >= 0] != 0).sum())
+    got = chip_smoke.launch_bytes(args, dict(nodes=7, rows=5))
+    assert got == (o.shape[0] * 20 + NB * 4 + 3 * bt.PACKET * 16 + live * 12
+                   + 7 * 48 + 5 * 48)
+    assert chip_smoke.launch_bytes(
+        (t(o), t(d), t(valid), t(np.full(NB, -1, np.int32))),
+        dict(nodes=0, rows=0)) == o.shape[0] * 20 + NB * 4
+
+
 def test_group_is_checked():
     cm = random_mesh(2, 37)
     o, d, valid = wavefront(2, cm.bounds_min, cm.bounds_max)

@@ -95,10 +95,28 @@ def test_interop_carries_the_scene():
 
 
 def test_instance_bvh_scenes_raise():
+    """64 instances (INSTANCE_BVH_THRESHOLD) no longer raise: they build the
+    instance tree, equal to the JAX package's, and carry it through
+    interop."""
     meshes, _, lights = scene_inputs()
-    many = [Instance(0, np.eye(4, dtype=np.float32))] * 64
-    with pytest.raises(NotImplementedError, match="slice C"):
-        build_scene(meshes, many, lights, device="cpu")
+    many = [Instance(k % 2, mat4_translate_scale((0.0, 0.3 * (k // 8),
+                                                  0.3 * (k % 8)),
+                                                 (0.1, 0.1, 0.1)))
+            for k in range(64)]
+    scene = build_scene(meshes, many, lights, device="cpu")
+    ref = jax_build_scene(meshes, many, lights)
+    assert scene.inst_bvh is not None and ref.inst_bvh is not None
+    tree = {f.name: np.asarray(getattr(ref.inst_bvh, f.name))
+            for f in dataclasses.fields(ref.inst_bvh)}
+    for name, a in tree.items():
+        np.testing.assert_array_equal(getattr(scene.inst_bvh, name).numpy(),
+                                      a, name)
+    arrays = {n: np.asarray(getattr(ref, n)) for n in TENSOR_FIELDS}
+    static = {n: getattr(ref, n) for n in STATIC_FIELDS}
+    got = interop.scene_from_numpy(arrays, "cpu", inst_bvh=tree, **static)
+    for name in tree:
+        assert torch.equal(getattr(got.inst_bvh, name),
+                           getattr(scene.inst_bvh, name)), name
 
 
 @pytest.mark.parametrize("mesh", ["sphere", "random"])

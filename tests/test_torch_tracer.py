@@ -154,14 +154,27 @@ def test_fast_samples_and_scatter_match_jax(samples, dense):
 
 
 def test_fast_rejects_other_scenes():
+    """max_depth 0 still raises; two instances now render (through
+    trace_image_fast_multi) and match the JAX package's frame within the
+    multi-instance tolerance (tests/torch_parity.py::assert_multi_close)."""
+    from torch_parity import assert_multi_close
+
     spec = chip_smoke.make_scene(3, bands=8, width=32, height=32)
     cam = dataclasses.replace(spec.camera, max_depth=0)
     with pytest.raises(NotImplementedError):
         render_surface(spec.meshes, spec.instances, spec.lights, cam,
                        device="cpu")
-    with pytest.raises(NotImplementedError):
-        render_surface(spec.meshes, spec.instances * 2, spec.lights,
-                       spec.camera, device="cpu")
+    shifted = dataclasses.replace(spec.instances[0], m=np.asarray(
+        [[1, 0, 0, 0.1], [0, 1, 0, 0], [0, 0, 1, -0.2], [0, 0, 0, 1]],
+        np.float32))
+    two = spec.instances + [shifted]
+    fb = render_surface(spec.meshes, two, spec.lights, spec.camera,
+                        device="cpu").numpy()
+    jscene = jax_build_scene(spec.meshes, two, spec.lights)
+    jrays = JaxCamera(**dataclasses.asdict(spec.camera)).generate_rays()
+    ref = np.asarray(jax_tracer.trace_image_fast_multi(jscene, jrays, 32, 32))
+    assert_multi_close(fb, ref, 32, 32)
+    assert (fb[:, :3].sum(axis=1) > 0).mean() > 0.3
 
 
 def test_shuffle_retires_and_deposits_like_jax():
