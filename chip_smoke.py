@@ -69,6 +69,41 @@ of bench_inner.py:208-229 on the procedural wavelet brick):
                  and waves, and its shape (slice_launch_shape: each block's
                  span on the card's clock, the longest block against the
                  launch)
+F1 and the native builder (after phase 4):
+  hold_K1_vertices  K1 and K2 on the camera wavefront with every 5th ray
+                 aimed exactly at a mesh vertex or the floor's rim, lane by
+                 lane against the packet-wide plain version (lost, swapped,
+                 gained and other lanes; lost and other must be 0, swapped
+                 and gained at most VERTEX_LIMITS), and bit-equal to the
+                 plain version at the kernel's group width
+  native         the native BVH builder must load; flagship build time,
+                 native and numpy; the default frame byte-equal to one
+                 over a tree from the native build's arrays; ties moved
+                 against the numpy builder's leaf order
+The schedulers (slice D; the many-domain scene at 512^2):
+  hold_K1_sched / hold_K2_sched  K1 and K2 on launches of the
+                 streamed renderer's rounds (its first group; the group
+                 whose padded mesh slots have root -1) and of a domain
+                 member's round after the first exchange, against both
+                 plain versions, as phases 3-4
+  sched_image    trace_image_sharded with the accel over a LocalGroup(4)
+                 on the card (point light only, depth 1) against the
+                 all-resident looped frame (<= 1e-5; the share of pixels
+                 bit-equal)
+  sched_streamed StreamedImageRenderer with the accel under a 24,576-
+                 triangle budget: bit-equal to the all-resident frame;
+                 rounds, group copies, bytes copied to the card
+  sched_domain   DomainRenderer over a LocalGroup(4) at depth 1 and 2
+                 (both lights) against the all-resident frame (<= 1e-5),
+                 drops 0; per member triangles held and rays traced; per
+                 frame rounds, exchanges taken and skipped, peak demand,
+                 host syncs, ms; and at world size 1 on a one-rank NCCL
+                 DistGroup, bit-equal to LocalGroup(1) (no member has a
+                 migrant there, so the frame runs no all_to_all: the
+                 group's all_to_all is called once on a (1, C) arena,
+                 every field, and must return its input)
+  Each of these frames is driven with the launch counts at 0 just before
+  it and read just after; K1 and K2 must both have launched.
 then the kernels line and, last, the device line.
 
 The scene is the flagship bench configuration (bench_inner.py --fast) with
@@ -82,6 +117,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import pathlib
+import socket
 import subprocess
 import sys
 import time
@@ -93,7 +129,10 @@ sys.path.insert(0, str(ROOT))
 
 import torch  # noqa: E402
 
-from gravit_tpu_torch.accel.scene_accel import build_scene_bvh  # noqa: E402
+from gravit_tpu_torch import native as native_lib  # noqa: E402
+from gravit_tpu_torch import parallel  # noqa: E402
+from gravit_tpu_torch.accel.bvh import LEAF_PAD_ROWS, build_bvh  # noqa: E402
+from gravit_tpu_torch.accel.scene_accel import SceneBVH, build_scene_bvh  # noqa: E402
 from gravit_tpu_torch.core.math3d import mat4_translate_scale  # noqa: E402
 from gravit_tpu_torch.ops import _build  # noqa: E402
 from gravit_tpu_torch.ops import bvh_traverse as bt  # noqa: E402
@@ -106,7 +145,11 @@ from gravit_tpu_torch.render.scene_build import Instance, build_scene  # noqa: E
 from gravit_tpu_torch.render.tracer import (make_arena,  # noqa: E402
                                             trace_image, trace_image_fast,
                                             trace_image_fast_multi)
+from gravit_tpu_torch.parallel import LocalGroup, Mesh as GroupMesh  # noqa: E402
 from gravit_tpu_torch.render.volume_scene import build_volume_scene  # noqa: E402
+from gravit_tpu_torch.schedule import domain_sched as ds  # noqa: E402
+from gravit_tpu_torch.schedule.image_sched import (  # noqa: E402
+    StreamedImageRenderer, trace_image_sharded)
 from gravit_tpu_torch.scene import image as img  # noqa: E402
 from gravit_tpu_torch.scene.camera import PerspectiveCamera  # noqa: E402
 from gravit_tpu_torch.scene.light import area_light, point_light  # noqa: E402
@@ -620,9 +663,12 @@ def hold_traversal(args, name: str, launch=None) -> dict:
     live = args[2] != 0
     ok, err, extra = _disagreement(k, p, live, any_hit)
     ok_g, err_g, extra_g = _disagreement(k, g, live, any_hit)
-    counts_equal = all(
-        torch.equal(getattr(k, f), getattr(g, f)) for f in
-        ("node_visits", "tri_rows", "lane_node_tests", "lane_tri_rows"))
+    # a count that differs: its sums, kernel and plain at group width
+    counts_differ = {
+        f: [int(getattr(k, f).sum()), int(getattr(g, f).sum())] for f in
+        ("node_visits", "tri_rows", "lane_node_tests", "lane_tri_rows")
+        if not torch.equal(getattr(k, f), getattr(g, f))}
+    counts_equal = not counts_differ
     rec = dict(kernel=name, **({} if launch is None else {"launch": launch}),
                rays=int(args[0].shape[0]),
                blocks=int(args[3].numel()),
@@ -637,13 +683,126 @@ def hold_traversal(args, name: str, launch=None) -> dict:
                table_reads=dict(nodes=int(((reads & 1) != 0).sum()),
                                 rows=int(args[5][(reads & 2) != 0, 1].sum())),
                max_abs_err=max(err, err_g), plain_s=plain_s,
-               vs_same_group=dict(counts_equal=counts_equal, **extra_g),
+               vs_same_group=dict(counts_equal=counts_equal,
+                                  counts_differ=counts_differ, **extra_g),
                ok=ok and ok_g and counts_equal, **extra)
     log("hold_" + name, **rec)
     if not rec["ok"]:
         raise SystemExit(f"{name} {launch or ''}: kernel disagrees with the "
                          "plain version")
     return rec
+
+
+def aim_at_vertices(args, cm, seed: int = 0, every: int = 5) -> tuple:
+    """A traversal launch's rays with every `every`-th lane re-aimed EXACTLY
+    at a point of the mesh `cm`, as tests/test_torch_bvh_groups.py's
+    camera_wavefront("corners") does: a mesh vertex (shared by six
+    triangles, and a corner of their leaf boxes) or a point of the floor's
+    rim (on a face of the floor's zero-height box). The origins stay.
+    Returns (args, re-aimed lanes)."""
+    o = args[0].cpu().numpy()
+    d = args[1].cpu().numpy().copy()
+    n = o.shape[0]
+    rng = np.random.default_rng(seed)
+    # the floor is the mesh's last two faces, (c0, c3, c2) and (c0, c2, c1)
+    c0 = cm.v0[-1]
+    c2, c1 = c0 + cm.e1[-1], c0 + cm.e2[-1]
+    s = rng.uniform(0, 1, (n, 1)).astype(np.float32)
+    k = rng.integers(0, cm.num_triangles, n)
+    on_mesh = cm.v0[k] + np.where(s < 0.5, cm.e1[k], cm.e2[k])
+    on_floor = c1 + s * (c2 - c1)
+    aim = np.where(rng.uniform(size=(n, 1)) < 0.7, on_mesh, on_floor)
+    pick = np.arange(n) % every == 0
+    new = aim - o
+    new = (new / np.linalg.norm(new, axis=1, keepdims=True)).astype(np.float32)
+    d[pick] = new[pick]
+    dev = args[0].device
+    return ((args[0], torch.from_numpy(d).to(dev)) + tuple(args[2:]),
+            torch.from_numpy(pick).to(dev))
+
+
+def vertex_lanes(k, p, live, aimed, any_hit: bool) -> dict:
+    """The lanes where the kernel's warp-wide walk `k` and the packet-wide
+    walk `p` differ, by kind: `lost` (the packet walk hits, the kernel
+    misses), `swapped` (both hit, other prim, t within 1e-5 relative: the
+    neighbouring triangle at the same point), `gained` (the kernel finds a
+    hit the packet walk does not, or one closer by more than that), and
+    `other`; `off_aim` counts differing lanes that were not re-aimed. Any
+    hit: only the occluded flags."""
+    if any_hit:
+        kh, ph = (k.prim >= 0) & live, (p.prim >= 0) & live
+        differ = kh != ph
+        return dict(lost=int((ph & ~kh).sum()), gained=int((kh & ~ph).sum()),
+                    swapped=0, other=0, off_aim=int((differ & ~aimed).sum()),
+                    aimed=int(aimed.sum()), occluded=int(ph.sum()))
+    differ = ((k.prim != p.prim) | (k.t != p.t)) & live
+    kh, ph = k.prim >= 0, p.prim >= 0
+    both = differ & kh & ph
+    rel = (k.t - p.t).abs() / p.t.abs().clamp(min=1e-30)
+    swapped = both & (rel <= 1e-5)
+    lost = differ & ph & ~kh
+    gained = differ & kh & (~ph | (both & ~swapped & (k.t < p.t)))
+    other = differ & ~(swapped | lost | gained)
+    return dict(lost=int(lost.sum()), swapped=int(swapped.sum()),
+                gained=int(gained.sum()), other=int(other.sum()),
+                off_aim=int((differ & ~aimed).sum()), aimed=int(aimed.sum()),
+                hits=int((ph & live).sum()),
+                swap_rel_max=float(rel[swapped].max()) if bool(
+                    swapped.any()) else 0.0)
+
+
+# hold_vertices' limits: the swapped and gained lanes measured on an H100
+# 80GB HBM3 with the conservative slab test (make_scene(0), 512^2, seed 0:
+# 52,429 re-aimed lanes). A gained lane is a hit the packet-wide walk does
+# not find: the widened test lets a warp enter a leaf no lane of the packet
+# enters, and a lane finds a closer hit there.
+VERTEX_LIMITS = {"K1": dict(swapped=120, gained=25),
+                 "K2": dict(swapped=0, gained=1)}
+
+
+def hold_vertices(k1_args, cm) -> dict:
+    """F1's count on the card: K1 and K2 on the flagship camera wavefront
+    with every 5th lane re-aimed at a mesh vertex or the floor's rim,
+    against the packet-wide plain version (the JAX function), lane by lane
+    (vertex_lanes); and held bit-equal, counts included, to the plain
+    version at the kernel's own group width, as every hold is. Fails on a
+    lost hit, an `other` lane, a differing lane that was not re-aimed,
+    swapped or gained lanes above VERTEX_LIMITS, or any difference from
+    the plain version at group width."""
+    v_args, aimed = aim_at_vertices(k1_args, cm)
+    live = v_args[2] != 0
+    recs = {}
+    for any_hit in (False, True):
+        args = tuple(v_args[:8]) + (any_hit,)
+        k = bt.bvh_intersect_kernel(*args)
+        p = bt.bvh_intersect_plain(*args)
+        g = bt.bvh_intersect_plain(*args, group=k.group)
+        torch.cuda.synchronize()
+        same = all(torch.equal(getattr(k, f), getattr(g, f)) for f in (
+            "t", "prim", "u", "v", "node_visits", "tri_rows",
+            "lane_node_tests", "lane_tri_rows"))
+        lanes = vertex_lanes(k, p, live, aimed, any_hit)
+        name = "K2" if any_hit else "K1"
+        limits = VERTEX_LIMITS[name]
+        rec = dict(kernel=name, rays=int(args[0].shape[0]), **lanes,
+                   limits=limits, vs_same_group_bit_equal=same,
+                   walk=dict(group=k.group,
+                             node_visits=int(k.node_visits.sum()),
+                             tri_rows=int(k.tri_rows.sum()),
+                             lane_node_tests=int(k.lane_node_tests.sum()),
+                             lane_tri_rows=int(k.lane_tri_rows.sum())),
+                   packet_walk=dict(node_visits=int(p.node_visits.sum()),
+                                    tri_rows=int(p.tri_rows.sum())),
+                   ok=(same and lanes["lost"] == 0 and lanes["other"] == 0
+                       and lanes["off_aim"] == 0
+                       and all(lanes[k] <= v for k, v in limits.items())))
+        log("hold_K1_vertices", **rec)
+        recs[name] = rec
+        if not rec["ok"]:
+            raise SystemExit(f"{name} on vertex-aimed rays: lost hits, "
+                             "swaps or gains over their limits, or a "
+                             "difference from the plain version")
+    return recs
 
 
 def compare_frames(a: torch.Tensor, b: torch.Tensor, w: int, h: int) -> dict:
@@ -1066,6 +1225,390 @@ def multi_phases(dev, card: str, occupancy: dict, film: int = 512,
     for rec in held.values():
         del rec["args"]
     return dict(counts=main_counts, held=held)
+
+
+# ---------------------------------------------------------------------------
+# the native builder
+
+def single_mesh_bvh(order, bounds, meta, cm, dev):
+    """The SceneBVH of one mesh from a flat build's arrays, laid out as
+    the JAX package's build_scene_bvh lays them out (gravit_tpu/accel/
+    scene_accel.py): triangles in leaf order, padded by LEAF_PAD_ROWS."""
+    t = order.shape[0]
+    tri = np.zeros((t + LEAF_PAD_ROWS, 12), np.float32)
+    tri[:t, 0:3], tri[:t, 3:6], tri[:t, 6:9] = (cm.v0[order], cm.e1[order],
+                                                cm.e2[order])
+    leaf2global = np.concatenate([order, np.zeros(LEAF_PAD_ROWS, np.int32)])
+    def as_t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    return SceneBVH(bounds=as_t(bounds), meta=as_t(meta), tri=as_t(tri),
+                    leaf2global=as_t(leaf2global),
+                    mesh_root=as_t(np.zeros(1, np.int32)), num_meshes=1)
+
+
+def native_phase(dev, spec: SceneSpec, scene, k1_args) -> None:
+    """The native host builder on the flagship mesh: it must load (no
+    quiet fall back to numpy); its build time beside the numpy builder's;
+    the frame of render_surface (the default build) byte-equal to the frame
+    traced over a tree assembled from the native build's own arrays (the
+    JAX package's default order); and, against the numpy builder's leaf
+    order (the port's default before), the frame's bytes and the camera
+    lanes whose hit moved to another triangle at the same t (ties)."""
+    if not native_lib.available():
+        raise SystemExit(f"native builder unavailable: {native_lib.error}")
+    cm = spec.meshes[0]
+    times = {}
+    for name, use_native in (("native", True), ("numpy", False)):
+        t0 = time.perf_counter()
+        flat = build_bvh(cm.v0, cm.e1, cm.e2, native=use_native)
+        times[name] = (time.perf_counter() - t0, flat)
+    nat, py = times["native"][1], times["numpy"][1]
+    W, H = spec.camera.film_width, spec.camera.film_height
+    fb = render_surface(spec.meshes, spec.instances, spec.lights,
+                        spec.camera, device=dev)
+    raw = native_lib.build_bvh_native(cm.v0, cm.e1, cm.e2)
+    jax_order = single_mesh_bvh(raw[2], raw[0], raw[1], cm, dev)
+    rays = spec.camera.generate_rays(dev)
+    fb_jax_order = trace_image_fast(scene, rays, W, H, accel=jax_order)
+    numpy_order = single_mesh_bvh(py.order, py.bounds, py.meta, cm, dev)
+    fb_numpy = trace_image_fast(scene, rays, W, H, accel=numpy_order)
+    # the camera launch over each tree: lanes whose hit moved at equal t
+    hits = {}
+    for name, acc in (("native", jax_order), ("numpy", numpy_order)):
+        args = tuple(k1_args[:4]) + (acc.bounds, acc.meta, acc.tri,
+                                     k1_args[7], False)
+        r = bt.bvh_intersect_kernel(*args)
+        hits[name] = (r.t, torch.where(r.prim >= 0,
+                                       acc.leaf2global[r.prim.clamp(min=0)],
+                                       -1))
+    (tn, pn), (tp_, pp) = hits["native"], hits["numpy"]
+    moved = (pn != pp) & (tn == tp_)
+    vs_jax = compare_frames(fb, fb_jax_order, W, H)
+    ok = (vs_jax["byte_frac"] == 0.0 and vs_jax["float_max"] == 0.0
+          and np.array_equal(nat.bounds, py.bounds)
+          and sorted(nat.order.tolist()) == list(range(cm.num_triangles)))
+    log("native", triangles=cm.num_triangles, available=True,
+        build_s={"native": times["native"][0], "numpy": times["numpy"][0]},
+        nodes=int(nat.bounds.shape[0]), depth=nat.depth,
+        same_node_table=bool(np.array_equal(nat.bounds, py.bounds)),
+        leaf_order_equal=bool(np.array_equal(nat.order, py.order)),
+        vs_native_arrays=vs_jax,
+        vs_numpy_order=dict(**compare_frames(fb, fb_numpy, W, H),
+                            camera_ties_moved=int(moved.sum()),
+                            other_lanes_differ=int(((pn != pp) & ~moved)
+                                                   .sum())),
+        ok=ok)
+    if not ok:
+        raise SystemExit("native: the default frame is not the native "
+                         "build's")
+
+
+# ---------------------------------------------------------------------------
+# slice D: the image and domain schedulers
+
+SCHED_BUDGET_TRIS = 3 * 8192  # three of the many-domain scene's meshes
+
+
+def observe_sched(fn) -> tuple:
+    """observe_frame(fn) plus what the domain scheduler did: trace_round
+    and _pack_exchange calls (per member) and the (drops, peak demand) of
+    every trace_domain call."""
+    calls = {"pack": 0, "domain": []}
+    orig_p, orig_t = ds._pack_exchange, ds.trace_domain
+
+    def pack(*args, **kw):
+        calls["pack"] += 1
+        return orig_p(*args, **kw)
+
+    def trace(*args, **kw):
+        out = orig_t(*args, **kw)
+        if kw.get("return_stats") == "peak":
+            calls["domain"].append([int(x) for x in out[1]])
+        return out
+
+    ds._pack_exchange, ds.trace_domain = pack, trace
+    try:
+        out, stats = observe_frame(fn)
+    finally:
+        ds._pack_exchange, ds.trace_domain = orig_p, orig_t
+    stats.update(packs=calls["pack"], domain_calls=calls["domain"])
+    return out, stats
+
+
+def capture_round_launches(fn, target: str, tag_of) -> dict:
+    """Run fn() with render/tracer.py's `target` (the round a scheduler
+    runs for one member or one mesh group) wrapped, and return
+    {(tag, kind): launch arguments} for the first launch of each kind
+    ("closest" / "any_hit") with a live block made under a round call that
+    `tag_of(call number, its accel)` tags (None: not taken)."""
+    seen, state = {}, {"tag": None, "calls": 0}
+    orig_round, orig = getattr(tr, target), bt.bvh_intersect_kernel
+
+    def round_fn(*args, **kw):
+        state["tag"] = tag_of(state["calls"], kw.get("accel"))
+        state["calls"] += 1
+        try:
+            return orig_round(*args, **kw)
+        finally:
+            state["tag"] = None
+
+    def record(*args):
+        key = (state["tag"], "any_hit" if args[8] else "closest")
+        if (key[0] is not None and key not in seen
+                and bool((args[3] >= 0).any())):
+            seen[key] = tuple(a.clone() if torch.is_tensor(a) else a
+                              for a in args)
+        return orig(*args)
+
+    setattr(tr, target, round_fn)
+    bt.bvh_intersect_kernel = record
+    try:
+        fn()
+    finally:
+        setattr(tr, target, orig_round)
+        bt.bvh_intersect_kernel = orig
+    torch.cuda.synchronize()
+    return seen
+
+
+def hold_sched_launches(name: str, fn, target: str, tag_of,
+                        want: dict) -> dict:
+    """K1 and K2 on the launches a scheduler's rounds give them (the
+    member's or group's stacked tables, zero-padded rows, padded mesh
+    slots with root -1), each held against both plain versions by
+    hold_traversal. `want` maps (tag, kind) to what the launch is."""
+    seen = capture_round_launches(fn, target, tag_of)
+    missing = set(want) - set(seen)
+    if missing:
+        raise SystemExit(f"{name}: no live launch {sorted(missing)}")
+    held = {}
+    for (tag, kind), args in sorted(seen.items()):
+        if (tag, kind) not in want:
+            continue
+        label = f"{name}/{tag}/{kind}"
+        rec = hold_traversal(args, "K2_sched" if kind == "any_hit"
+                             else "K1_sched", launch=label)
+        held[label] = dict(max_abs_err=rec["max_abs_err"],
+                           what=want[(tag, kind)])
+    return held
+
+
+def padded_slots(accel) -> bool:
+    """Whether a group's tables have a padded mesh slot (root -1)."""
+    return accel is not None and bool((accel.mesh_root < 0).any())
+
+
+def sched_frame(name: str, fn, ref, W: int, H: int, card: str,
+                main_counts: dict, tol: float, reps: int = 2,
+                bit_equal: bool = False, extra=None) -> dict:
+    """Drive one scheduled frame through its entry point with the launch
+    counts at 0 just before and read just after (both kernels must have
+    launched), hold it against the all-resident frame `ref` (max |d| <=
+    tol; bit_equal: equal), observe a second run (host syncs, rounds,
+    launches, exchanges) and time it (CUDA events over `reps` frames, host
+    clock). `extra(stats)` adds fields."""
+    bt.reset_launch_counts()
+    fb = fn()
+    torch.cuda.synchronize()
+    counts = {"closest": bt.launches_closest, "any_hit": bt.launches_any_hit}
+    for k in counts:
+        main_counts[k] += counts[k]
+    _, stats = observe_sched(fn)
+    cmp = compare_frames(fb, ref, W, H)
+    d = (fb[:, :3] - ref[:, :3]).abs().amax(dim=1)
+    bit_frac = float((d == 0).float().mean())
+    ms = cuda_ms(fn, reps=reps, warmup=0)
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    ok = (counts["closest"] > 0 and counts["any_hit"] > 0 and cmp["finite"]
+          and cmp["coverage"] > 0.05 and cmp["float_max"] <= tol
+          and (not bit_equal or bool(torch.equal(fb[:, :3], ref[:, :3]))))
+    rec = dict(frame=name, card=card, launches=counts,
+               observed_launches=stats["launches"],
+               empty_launches=stats["empty_launches"],
+               host_syncs=stats["host_syncs"],
+               member_rounds=stats["calls"]["rounds"], ms=ms,
+               host_ms=host_ms, rays_per_s=W * H / ms * 1e3,
+               vs_resident=cmp, pixels_bit_equal=bit_frac,
+               tolerance=dict(float_max=tol, bit_equal=bit_equal), ok=ok)
+    if extra is not None:
+        rec.update(extra(stats))
+    log(name.split("/")[0], **rec)
+    if not ok:
+        raise SystemExit(f"{name}: failed")
+    return rec
+
+
+def sched_phases(dev, card: str, film: int = 512) -> dict:
+    """Slice D on the card: the image scheduler on a LocalGroup(4) and the
+    streamed renderer (the many-domain scene with its point light only,
+    depth 1), and the domain scheduler on a LocalGroup(4) (depth 1 and 2,
+    both lights) and at world size 1 on a one-rank NCCL DistGroup. Every
+    frame drives K1 and K2 through the user's entry point and is held
+    against the all-resident looped frame. K1 and K2 are held against
+    their plain versions on launches of the streamed renderer's rounds
+    and of a domain member's round (hold_sched_launches). Returns the main
+    path's launch counts and the held launches' errors."""
+    W = H = film
+    main_counts = {"closest": 0, "any_hit": 0}
+    holds = {}
+    spec = make_multi_scene(0, W, H)
+    point = dataclasses.replace(spec, lights=spec.lights[:1])
+    t0 = time.time()
+    accel = build_scene_bvh(spec.meshes, device=dev)
+    scene_p = build_scene(point.meshes, point.instances, point.lights,
+                          device=dev)
+    rays = spec.camera.generate_rays(dev)
+    ref_point = trace_image(scene_p, make_arena(rays, 1), W, H, accel=accel)
+    torch.cuda.synchronize()
+    log("sched_scene", film=[W, H], meshes=len(spec.meshes),
+        instances=len(spec.instances),
+        triangles=sum(m.num_triangles for m in spec.meshes),
+        setup_s=time.time() - t0)
+
+    # ---- the image scheduler: rays over 4 members, scene replicated ------
+    mesh4 = GroupMesh({"rays": LocalGroup(4, dev)})
+    sched_frame("sched_image", lambda: trace_image_sharded(
+        scene_p, make_arena(rays, 1), W, H, mesh4, accel=accel), ref_point,
+        W, H, card, main_counts, tol=1e-5, extra=lambda st: dict(members=4))
+
+    # ---- the streamed renderer: mesh groups under a triangle budget -------
+    t0 = time.time()
+    sr = StreamedImageRenderer(point.meshes, point.instances, point.lights,
+                               budget_tris=SCHED_BUDGET_TRIS, use_accel=True,
+                               device=dev)
+    setup_s = time.time() - t0
+    log("sched_streamed_groups", groups=sr.num_groups,
+        padded_mesh_slots=[int((a.mesh_root < 0).sum())
+                           for a in sr.host_accels])
+    holds.update(hold_sched_launches(
+        "streamed", lambda: sr.render(point.camera), "_round_step",
+        lambda call, acc: "group",
+        {("group", "closest"): "a group's round: blocks of its 3 meshes",
+         ("group", "any_hit"): "a group's round: shadow blocks"}))
+    sched_frame("sched_streamed", lambda: sr.render(point.camera),
+                ref_point, W, H, card, main_counts, tol=0.0,
+                bit_equal=True, extra=lambda st: dict(
+                    groups=sr.num_groups, budget_tris=SCHED_BUDGET_TRIS,
+                    setup_s=setup_s, **{f"last_frame_{k}": v
+                                        for k, v in sr.stats.items()}))
+    del sr, scene_p, ref_point
+
+    # ---- the domain scheduler: domains over 4 members ----------------------
+    scene = build_scene(spec.meshes, spec.instances, spec.lights, device=dev)
+    for depth in (1, 2):
+        cam = dataclasses.replace(spec.camera, max_depth=depth)
+        ref = trace_image(scene, make_arena(cam.generate_rays(dev),
+                                            scene.num_lights), W, H,
+                          accel=accel)
+        n = 4
+        t0 = time.time()
+        dr = ds.DomainRenderer.build(
+            spec.meshes, spec.instances, spec.lights,
+            GroupMesh({"domains": LocalGroup(n, dev)}), use_accel=True)
+        setup_s = time.time() - t0
+        _, load = dr.render(cam, return_load=True)
+        held = [sum(spec.meshes[g].num_triangles for g in
+                    ds._local_mesh_ids(spec.instances, dr.resident, d))
+                for d in range(n)]
+
+        def extra(st, dr=dr, load=load, held=held, depth=depth,
+                  setup_s=setup_s):
+            rounds = st["calls"]["rounds"] // n
+            taken = st["packs"] // n
+            drops, peak = st["domain_calls"][-1]
+            return dict(members=n, depth=depth, setup_s=setup_s,
+                        triangles_held=held,
+                        padded_triangles=int(dr.scene_stacked.tri_v0.shape[1]),
+                        rays_traced=[int(x) for x in load], rounds=rounds,
+                        exchanges_taken=taken,
+                        exchanges_skipped=rounds - taken, peak_demand=peak,
+                        drops=drops, renders=len(st["domain_calls"]))
+
+        if depth == 2:
+            # member rounds after the first exchange: migrated rays
+            holds.update(hold_sched_launches(
+                "domain_d2", lambda dr=dr, cam=cam: dr.render(cam),
+                "trace_round",
+                lambda call, acc: "member_round1" if call >= n else None,
+                {("member_round1", "closest"):
+                     "a member's round after the first exchange",
+                 ("member_round1", "any_hit"):
+                     "the same round's shadow blocks"}))
+            # members of unequal size: placed by the default hybrid policy
+            # from the primary-ray demand, so smaller members' tables carry
+            # padded mesh slots (root -1) and zero rows
+            dr_p = dr.reschedule(dr.pending_histogram(cam))
+            meshes_held = [len(ds._local_mesh_ids(spec.instances,
+                                                  dr_p.resident, d))
+                           for d in range(n)]
+            log("sched_domain_placed", policy="RayWeightedSpread",
+                meshes_held=meshes_held,
+                padded_mesh_slots=[int((dr_p.accel.mesh_root[d] < 0).sum())
+                                   for d in range(n)])
+            holds.update(hold_sched_launches(
+                "domain_d2_placed", lambda dr=dr_p, cam=cam: dr.render(cam),
+                "trace_round",
+                lambda call, acc: "padded_member" if padded_slots(acc)
+                else None,
+                {("padded_member", "closest"):
+                     "a member whose padded mesh slots have root -1",
+                 ("padded_member", "any_hit"):
+                     "the same member's shadow blocks"}))
+            del dr_p
+        rec = sched_frame(f"sched_domain/d{depth}",
+                          lambda dr=dr, cam=cam: dr.render(cam), ref, W, H,
+                          card, main_counts, tol=1e-5, extra=extra)
+        if rec["drops"] != 0 or rec["renders"] != 1:
+            raise SystemExit("sched_domain: rays dropped")
+
+    # ---- world size 1 on NCCL: one member per process ----------------------
+    cam = dataclasses.replace(spec.camera, max_depth=1)
+    local1 = ds.DomainRenderer.build(
+        spec.meshes, spec.instances, spec.lights,
+        GroupMesh({"domains": LocalGroup(1, dev)}), use_accel=True).render(cam)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    parallel.initialize(f"localhost:{port}", 1, 0, backend="nccl")
+    try:
+        group = parallel.DistGroup(None, dev)
+        dr = ds.DomainRenderer.build(spec.meshes, spec.instances, spec.lights,
+                                     GroupMesh({"domains": group}),
+                                     use_accel=True)
+        bt.reset_launch_counts()
+        fb = dr.render(cam)
+        torch.cuda.synchronize()
+        counts = {"closest": bt.launches_closest,
+                  "any_hit": bt.launches_any_hit}
+        for k in counts:
+            main_counts[k] += counts[k]
+        equal = bool(torch.equal(fb, local1))
+        # no member has a migrant at world size 1: the frame ran no
+        # all_to_all; one on a (1, C) arena, every field, is the identity
+        packed = make_arena(cam.generate_rays(dev), 2).map(lambda a: a[None])
+        a2a = {f.name: group.all_to_all([getattr(packed, f.name)])[0]
+               for f in dataclasses.fields(packed)}
+        a2a_equal = all(torch.equal(v, getattr(packed, k))
+                        and v.dtype == getattr(packed, k).dtype
+                        for k, v in a2a.items())
+        torch.cuda.synchronize()
+        ok = (equal and a2a_equal and counts["closest"] > 0
+              and counts["any_hit"] > 0)
+        log("sched_domain", frame="nccl_world1", backend="nccl", world=1,
+            launches=counts, bit_equal_to_local_group1=equal,
+            vs_local_group1=compare_frames(fb, local1, W, H),
+            all_to_all_identity=a2a_equal,
+            all_to_all_shape=list(packed.origin.shape), ok=ok)
+    finally:
+        parallel.shutdown()
+    if not ok:
+        raise SystemExit("sched_domain: NCCL world 1 differs from "
+                         "LocalGroup(1), or its all_to_all")
+    return dict(counts=main_counts, held=holds)
 
 
 # ---------------------------------------------------------------------------
@@ -1556,6 +2099,9 @@ def main() -> int:
     k2d2_args = next(a for a in cap[2] if a[8])
     k1g1 = hold_traversal(k1g1_args, "K1_gen1")
     k2d2 = hold_traversal(k2d2_args, "K2_depth2")
+    # F1: rays aimed exactly at vertices and at the floor's rim
+    hold_vertices(k1_args, spec.meshes[0])
+    native_phase(dev, spec, scene, k1_args)
     del cap
 
     # ---- 5: K3, a triangle table over 6 MB (subset of blocks) -----------
@@ -1702,20 +2248,30 @@ def main() -> int:
     multi = multi_phases(dev, card, occupancy)
     for k in main_counts:
         main_counts[k] += multi["counts"][k]
+    # ---- slice D: the schedulers ----------------------------------------
+    sched = sched_phases(dev, card)
+    for k in main_counts:
+        main_counts[k] += sched["counts"][k]
+    # the scheduler holds' errors count with the kernel they held
+    sched_err = {kind: max([h["max_abs_err"] for label, h in
+                            sched["held"].items() if label.endswith(kind)]
+                           or [0.0])
+                 for kind in ("closest", "any_hit")}
     kernel_rows = [dict(
         name=name, route="cuda", source="gravit_tpu_torch/csrc/bvh_traverse.cu",
         replaces="gravit_tpu/ops/pallas_bvh.py:35", launches=launches,
-        max_abs_err=rec["max_abs_err"], ms=launch[key]["ms"],
+        max_abs_err=max(rec["max_abs_err"], sched_err.get(kind, 0.0)),
+        ms=launch[key]["ms"],
         plain_ms=plain_ms[key], bound_ms=launch[key]["bound_ms"],
         bound_by=launch[key]["bound_by"], library_ms=None,
         packet_bound_ms=launch[key]["packet_bound_ms"])
-        for name, key, rec, launches in (
+        for name, key, rec, launches, kind in (
             ("bvh_traverse (closest hit, K1)", "K1_gen0", k1,
-             main_counts["closest"]),
+             main_counts["closest"], "closest"),
             ("bvh_traverse (any hit, K2)", "K2_depth1", k2,
-             main_counts["any_hit"]),
+             main_counts["any_hit"], "any_hit"),
             ("bvh_traverse (table over 6 MB, K3)", "K3_subset", k3,
-             k3_launches))]
+             k3_launches, None))]
 
     kernel_rows += volume_phases(dev, card)
     log("done", seconds=time.time() - t_start)

@@ -1,6 +1,8 @@
 """Triangle BVH: host-side builder producing flat arrays for the traversal
-kernel. A copy of gravit_tpu/accel/bvh.py's numpy builder; the native C++
-builder is not carried over (it orders leaf triangles differently).
+kernel. A copy of gravit_tpu/accel/bvh.py: the native C++ builder
+(native/gravit_host.cpp) by default, the numpy builder when the native
+library cannot be built. The two give the same node table but another leaf
+triangle order, so the default matters: it is the JAX package's.
 
 Reference analog: GraviT's only BVH is over *instances* (data/accel/BVH.cpp,
 SAH with exhaustive edge splits, leaf=1) — triangle acceleration lived
@@ -20,6 +22,8 @@ import dataclasses
 
 import numpy as np
 
+from gravit_tpu_torch import native as native_lib
+
 MAX_LEAF = 8
 LEAF_PAD_ROWS = 8   # kernel reads leaf slices 8 rows at a time
 SAH_BINS = 16
@@ -38,7 +42,13 @@ class FlatBVH:
 
 
 def build_bvh(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray,
-              max_leaf: int = MAX_LEAF) -> FlatBVH:
+              max_leaf: int = MAX_LEAF, native: bool = True) -> FlatBVH:
+    if native:
+        out = native_lib.build_bvh_native(v0, e1, e2, max_leaf)
+        if out is not None:
+            bounds, meta, order, depth = out
+            return FlatBVH(bounds=bounds, meta=meta, order=order,
+                           depth=depth)
     return _build_bvh_py(v0, e1, e2, max_leaf)
 
 

@@ -9,7 +9,8 @@
 // The function (what every version computes). A packet of 1024 consecutive
 // rays shares one traversal ORDER: at an inner node the near child, by the
 // sign of the packet's SUMMED direction on the node's split axis (meta[3];
-// the sum runs over all 1024 lanes, dead ones included), is visited first.
+// the sum runs over all 1024 lanes, dead ones included, in block_sum's
+// order, which the plain version repeats), is visited first.
 // A ray's answer is the first closest hit along that order: a later leaf or
 // chunk must be strictly closer, and within a chunk of 8 rows a tie goes to
 // the smallest row.
@@ -43,12 +44,19 @@
 //     test passes. A warp that walks the packet's order and prunes with its
 //     own lanes' tests therefore skips only leaves that cannot change its
 //     lanes' answers, and returns the packet-wide walk's (t, prim, u, v)
-//     for every lane. (In float32 a hit exactly on a box face can fail the
-//     lane's own slab test: tests/test_torch_bvh_groups.py shows it for
-//     rays aimed at vertices, and chip_smoke.py holds every launch of the
-//     frames against the packet-wide plain version.) Taking the signs from
-//     the warp, or regrouping rays across packets, would change the tie
-//     winners and is not done.
+//     for every lane. Taking the signs from the warp, or regrouping rays
+//     across packets, would change the tie winners and is not done.
+//   * The slab test is conservative. In float32 a hit exactly on a box
+//     face (a ray aimed at a vertex, or at the floor's zero-height box)
+//     can fail the lane's own exact slab test by a rounding, while the
+//     packet-wide vote enters the leaf on a neighbour's test. So the exit
+//     distance is scaled by WIDEN = 1 + 2*gamma(3), gamma(n) = n*eps /
+//     (1 - n*eps), eps = 2^-24, before it is compared (Ize, "Robust BVH Ray
+//     Traversal", JCGT 2013; PBRT's Bounds3::IntersectP). The plain
+//     version at any group below the packet does the same; the
+//     packet-wide walk (the TPU kernel's) keeps the exact test.
+//     tests/test_torch_bvh_groups.py and chip_smoke.py's hold_K1_vertices
+//     count the lanes where the two walks still differ.
 //   * The longest warp's chain is what a launch waits for, so each step is
 //     kept short. A node's bounds and meta arrive as three 16-byte loads;
 //     an inner node's near child, always the next pop, is fetched beside
@@ -88,6 +96,9 @@ constexpr int GROUPS_PER_PACKET = PACKET / GROUP;
 constexpr int STACK_DEPTH = 96;
 constexpr int LEAF_PAD = 8;
 constexpr float BIG = 1e30f;
+// 1 + 2*gamma(3) rounded to float32 (1 + 3*2^-23): the slab test's exit
+// distance is scaled by it (ops/bvh_traverse.py's WIDEN)
+constexpr float WIDEN = 0x1.000006p+0f;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int STATS = 6;                      // ints per warp in `stats`
 
@@ -243,6 +254,7 @@ bvh_traverse_kernel(const float* __restrict__ o, const float* __restrict__ d,
         tn = maxp(tn, minp(a2, b2));
         tf = minp(tf, maxp(a2, b2));
       }
+      tf = tf * WIDEN;
       const bool node_hit = live && tf >= tn && tn < tb && tf > 1e-6f;
       // the vote. A lane that read stack[sp] above has used it by now (the
       // node feeds node_hit), so lane 0 may overwrite the slot below

@@ -9,7 +9,10 @@ counterpart: the table always lives in global memory.
 The function. A PACKET of 1024 consecutive rays shares one traversal
 ORDER: at every inner node the near child, by the sign of the packet's
 summed direction on the node's split axis, is visited first, so the leaves
-can be met in one fixed depth-first order per packet. A ray's answer is the
+can be met in one fixed depth-first order per packet. The sum runs in one
+fixed order on every device (`packet_direction_signs`, the kernel's): a
+packet whose sum lies within rounding of zero, such as two film rows of a
+camera centred on the view axis, takes its sign from that order. A ray's answer is the
 first closest hit along that order: a later leaf must be strictly closer,
 and inside a chunk of LEAF_PAD rows the smallest row wins a tie.
 
@@ -21,13 +24,23 @@ kernel votes over a warp (`group=GROUP`, 32 consecutive lanes), with the
 PACKET's direction signs. That is the same function: a leaf in which a lane
 hits nothing closer leaves its answer alone, and a lane can only hit inside
 boxes its own slab test passes, so a smaller group that walks the same
-order skips only leaves that could not change its lanes' answers. (In
-float32 a hit exactly on a box face could be rejected by the lane's own
-slab test and saved by a neighbour's vote:
-tests/test_torch_bvh_groups.py shows it for rays aimed at vertices, and
-`chip_smoke.py` holds the kernel against the packet-wide plain version on
-every launch of the frames and counts such lanes.) What is NOT the same function: taking the
-direction signs from the group, or regrouping rays across packets.
+order skips only leaves that could not change its lanes' answers.
+
+In float32 that last premise fails on the box's faces: a ray aimed exactly
+at a vertex or at the floor's zero-height box can hit a triangle
+(Möller-Trumbore) inside a leaf whose box its own slab test rejects by a
+rounding, and the packet-wide vote still enters that leaf on a
+neighbour's test. So a group narrower than the packet tests CONSERVATIVELY,
+in the manner of Ize, "Robust BVH Ray Traversal" (JCGT 2013) and PBRT: the
+exit distance is scaled by WIDEN = 1 + 2*gamma(3) before it is compared,
+gamma(n) = n*eps / (1 - n*eps), eps = 2^-24, which covers the rounding of
+the slab arithmetic. A widened group may in turn enter a leaf no lane of
+the packet enters and find a hit there that the packet walk misses
+(tests/test_torch_bvh_groups.py and `chip_smoke.py`'s hold_K1_vertices
+count such lanes). The packet-wide walk, the JAX function and what every
+CPU frame runs, keeps the exact test. What is NOT the same function:
+taking the direction signs from the group, or regrouping rays across
+packets.
 
 What bounds it on the card: by the roofline, the rays in and the hits out
 (the fp32 arithmetic of the node and triangle tests the rays need is
@@ -58,6 +71,9 @@ GROUP = 32            # the CUDA kernel's voting group: one warp
 STACK_DEPTH = 96
 LEAF_PAD = 8          # leaf triangle rows are tested 8 at a time
 BIG = 1e30
+# 1 + 2*gamma(3) rounded to float32, 1 + 3*2^-23 (WIDEN in the CUDA source):
+# a group narrower than PACKET scales each slab test's exit distance by it
+WIDEN = float.fromhex("0x1.000006p+0")
 
 # kernel launches since the last reset_launch_counts(); counted where the
 # kernel is launched and nowhere else
@@ -123,6 +139,24 @@ def _check(o, d, valid, block_root, bounds, meta, tri, t_far) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+def packet_direction_signs(d: torch.Tensor) -> torch.Tensor:
+    """(N // PACKET, 3) bool: each packet's summed direction >= 0 per axis,
+    added in the kernel's order (block_sum in csrc/bvh_traverse.cu): a
+    halving tree over each warp's 32 lanes (lane i + off into lane i, off
+    16 down to 1), then the warp sums one after another onto 0. Float
+    addition does not associate, and torch.sum's order differs between
+    devices, so only a fixed order gives the kernel and this version one
+    traversal order on every packet."""
+    nb = d.shape[0] // PACKET
+    x = d.reshape(nb, PACKET // 32, 32, 3)
+    for off in (16, 8, 4, 2, 1):
+        x = x[:, :, :off] + x[:, :, off:2 * off]
+    s = torch.zeros((nb, 3), dtype=d.dtype, device=d.device)
+    for w in range(PACKET // 32):
+        s = s + x[:, w, 0]
+    return s >= 0.0
+
+
 def bvh_intersect_plain(o, d, valid, block_root, bounds, meta, tri, t_far,
                        any_hit: bool = False, group: int = PACKET,
                        reads=None) -> Traversal:
@@ -130,9 +164,11 @@ def bvh_intersect_plain(o, d, valid, block_root, bounds, meta, tri, t_far,
     lanes: a stack `(ng, STACK_DEPTH)`, a stack pointer and a visit count
     per group, and a Python loop until every group is done. Same
     arithmetic, in the same order, as the kernel. `group=PACKET` is the
-    TPU kernel's walk (one vote per packet), `group=GROUP` the CUDA
-    kernel's (one vote per warp); both take the near child from the
-    PACKET's summed direction, so both visit leaves in one order.
+    TPU kernel's walk (one vote per packet, the exact slab test),
+    `group=GROUP` the CUDA kernel's (one vote per warp, the slab test
+    widened by WIDEN; so is every group below PACKET); both take the near
+    child from the PACKET's summed direction, so both visit leaves in one
+    order.
     `reads`, if given, is an (Nn,) uint8 tensor of zeros in which the walk
     marks what it read of the tables: it ORs 1 into every node a group
     popped and 2 into every leaf whose rows a group tested."""
@@ -149,8 +185,7 @@ def bvh_intersect_plain(o, d, valid, block_root, bounds, meta, tri, t_far,
     dc = [d[:, c].reshape(ng, group) for c in range(3)]
     inv = [_safe_inv(x) for x in dc]
     live0 = valid.reshape(ng, group) != 0
-    dpos = torch.stack([d[:, c].reshape(nb, PACKET).sum(dim=1) >= 0.0
-                        for c in range(3)], dim=1)                # (nb, 3)
+    dpos = packet_direction_signs(d)                              # (nb, 3)
     dpos = dpos.repeat_interleave(per_packet, dim=0)              # (ng, 3)
 
     tb = t_far.reshape(ng, group).clone()
@@ -194,6 +229,8 @@ def bvh_intersect_plain(o, d, valid, block_root, bounds, meta, tri, t_far,
             b = (bnd[:, ax + 3, None] - o_a[ax]) * inv_a[ax]
             tn = torch.maximum(tn, torch.minimum(a, b))
             tf = torch.minimum(tf, torch.maximum(a, b))
+        if group < PACKET:
+            tf = tf * WIDEN
         node_hit = live0[act] & (tf >= tn) & (tn < tb[act]) & (tf > 1e-6)
         enter = node_hit.any(dim=1)
         passed = node_hit.sum(dim=1).to(i32)

@@ -328,13 +328,17 @@ def _intersect_bvh(scene: SceneData, accel, o_obj, d_obj, ray_mesh, queued,
                prim=torch.where(miss, -1, hprim), u=hu, v=hv)
 
 
-def _scatter_drop(size: int, fill: int, index, src) -> torch.Tensor:
-    """full((size,), fill).at[index].set(src, mode="drop") for index >= 0:
-    scatter into a buffer one row longer, every index past the end sent to
-    that last row, which is thrown away. Indices below `size` must not
-    repeat (on the card the winner of a repeated index is undefined)."""
-    buf = torch.full((size + 1,), fill, dtype=src.dtype, device=src.device)
-    return buf.scatter_(0, index.clamp(max=size), src)[:size]
+def _scatter_drop(size: int, fill, index, src) -> torch.Tensor:
+    """full((size,) + src.shape[1:], fill).at[index].set(src, mode="drop")
+    for int64 index >= 0: scatter rows into a buffer one row longer, every
+    index past the end sent to that last row, which is thrown away.
+    Indices below `size` must not repeat (on the card the winner of a
+    repeated index is undefined)."""
+    rest = tuple(src.shape[1:])
+    buf = torch.full((size + 1,) + rest, fill, dtype=src.dtype,
+                     device=src.device)
+    idx = index.clamp(max=size).reshape((-1,) + (1,) * len(rest))
+    return buf.scatter_(0, idx.expand_as(src), src)[:size]
 
 
 def _pack_shade_table(scene: SceneData) -> torch.Tensor:

@@ -33,6 +33,20 @@ def clamp_rgb(fb: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.clamp(fb[:, :3], max=1.0), fb[:, 3:]], dim=-1)
 
 
+def composite(fb, group=None):
+    """Cross-device framebuffer reduction (the IceT replacement): the
+    members' framebuffers summed over `group` (parallel/), then clamped.
+    `fb` is a tensor when this process holds one member of the group, else
+    the list of the local members' framebuffers (one result each). Each
+    member deposits disjoint or nonnegative-additive pixels, so this is
+    IceT's BLEND for the surface path."""
+    if group is None:
+        return clamp_rgb(fb)
+    if isinstance(fb, (list, tuple)):
+        return [clamp_rgb(x) for x in group.all_reduce(list(fb))]
+    return clamp_rgb(group.all_reduce([fb])[0])
+
+
 def to_rgb8(fb, width: int, height: int) -> np.ndarray:
     """Flat rgba float framebuffer -> (H, W, 3) uint8, top row first.
 

@@ -173,14 +173,18 @@ def test_group_walk_shared_edges_and_floor(seed, any_hit):
 
 @pytest.mark.parametrize("seed", [0, 3])
 def test_group_walk_box_face_exception(seed):
-    """Where float32 breaks the invariant, and how far. A ray aimed exactly
+    """Where float32 bends the invariant, and how far. A ray aimed exactly
     at a box corner or face can hit a triangle (Möller-Trumbore) inside a
-    leaf whose box its OWN slab test rejects by a rounding; the packet-wide
-    vote enters that leaf on a neighbour's test, the warp-wide vote may not.
-    Such lanes exist only among the re-aimed ones, they are few (limit: 3%
-    of the re-aimed lanes; measured 1.5% and 1.8%), and each either finds the
-    neighbouring triangle at the same point (t within 1e-5 relative; measured 1.3e-6) or
-    loses a hit on the floor's rim. Every other lane is equal."""
+    leaf whose box an exact slab test rejects by a rounding; the
+    packet-wide vote enters that leaf on a neighbour's test. The warp walk
+    tests conservatively (the exit distance scaled by bt.WIDEN), so it
+    enters such a leaf on the lane's own test and loses no hit: limit 0
+    lost hits (with the exact test: 5 a seed, on the floor's rim). What is
+    left: a few re-aimed lanes find the neighbouring triangle at the same
+    point (limit: the measured count, 7 and 6 of the 820 re-aimed lanes,
+    t within 1e-6 relative, measured 7.7e-7); no lane finds a hit the
+    packet walk misses (limit 0, measured 0); every lane that was not
+    re-aimed is equal; any hit: the occluded flags are equal."""
     cm, tables = floor_scene(seed)
     o, d, valid, aimed = camera_wavefront(cm, seed, "corners")
     roots = np.zeros(o.shape[0] // bt.PACKET, np.int32)
@@ -188,14 +192,15 @@ def test_group_walk_box_face_exception(seed):
     differ = (p.prim != g.prim) | (p.t != g.t)
     aimed = torch.as_tensor(aimed)
     assert not bool((differ & ~aimed).any())
-    assert 0 < int(differ.sum()) <= 0.03 * int(aimed.sum())
-    both_hit = differ & (p.prim >= 0) & (g.prim >= 0)
-    rel = ((p.t - g.t).abs() / p.t)[both_hit]
-    assert float(rel.max()) <= 1e-5
-    lost = differ & ~both_hit
-    y_hit = torch.as_tensor(o[:, 1]) + p.t * torch.as_tensor(d[:, 1])
-    assert bool(((y_hit - float(cm.v0[-1, 1])).abs()[lost] < 1e-5).all())
-    assert bool((g.prim[lost] == -1).all())
+    lanes = chip_smoke.vertex_lanes(g, p, torch.as_tensor(valid) != 0,
+                                    aimed, any_hit=False)
+    assert lanes["lost"] == 0 and lanes["gained"] == 0, lanes
+    assert lanes["other"] == 0, lanes
+    assert 0 < lanes["swapped"] <= {0: 7, 3: 6}[seed], lanes
+    assert lanes["swapped"] == int(differ.sum())
+    assert lanes["swap_rel_max"] <= 1e-6, lanes
+    p, g = both_walks(o, d, valid, roots, tables, True, bt.GROUP)
+    assert_same_function(p, g, valid, any_hit=True)
 
 
 @pytest.mark.parametrize("any_hit", [False, True])
@@ -320,6 +325,40 @@ def test_table_reads(any_hit):
     assert chip_smoke.launch_bytes(
         (t(o), t(d), t(valid), t(np.full(NB, -1, np.int32))),
         dict(nodes=0, rows=0)) == o.shape[0] * 20 + NB * 4
+
+
+def kernel_order_sum(x: np.ndarray) -> np.float32:
+    """One packet's 1024 float32 values summed as csrc/bvh_traverse.cu's
+    block_sum adds them: per warp, lane i takes lane i + off for off = 16,
+    8, 4, 2, 1; then s = 0 and s += each warp's lane 0, in warp order."""
+    s = np.float32(0.0)
+    for w in range(bt.PACKET // 32):
+        lanes = [np.float32(v) for v in x[32 * w:32 * (w + 1)]]
+        off = 16
+        while off:
+            lanes = [np.float32(lanes[i] + lanes[i + off])
+                     for i in range(off)]
+            off //= 2
+        s = np.float32(s + lanes[0])
+    return s
+
+
+@pytest.mark.parametrize("symmetric", [False, True])
+def test_packet_direction_signs_kernel_order(symmetric):
+    """The packet's direction signs are summed in the kernel's order, on
+    any device. With `symmetric`, each packet holds rows of directions
+    mirrored about x = 0 with a rounding's shift, so the x sums lie within
+    rounding of zero and their signs depend on the order of the adds."""
+    rng = np.random.default_rng(5)
+    d = rng.standard_normal((4 * bt.PACKET, 3)).astype(np.float32)
+    if symmetric:
+        half = d.reshape(4, 2, bt.PACKET // 2, 3)
+        half[:, 1, :, 0] = -half[:, 0, ::-1, 0] * np.float32(1 + 2**-23)
+    got = bt.packet_direction_signs(torch.from_numpy(d)).numpy()
+    want = np.array([[kernel_order_sum(d[p * bt.PACKET:(p + 1) * bt.PACKET,
+                                         c]) >= 0 for c in range(3)]
+                     for p in range(4)])
+    np.testing.assert_array_equal(got, want)
 
 
 def test_group_is_checked():

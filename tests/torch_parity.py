@@ -40,7 +40,8 @@ def leaves(x, skip=("inst_bvh",)) -> dict:
     return {f.name: np.asarray(getattr(x, f.name))
             for f in dataclasses.fields(x)
             if f.name not in skip
-            and not isinstance(getattr(x, f.name), (int, bool, type(None)))}
+            and not isinstance(getattr(x, f.name),
+                               (int, bool, tuple, type(None)))}
 
 
 def jax_scene(spec, **kw):
@@ -96,3 +97,33 @@ def assert_multi_close(a, b, w: int, h: int) -> None:
 
 def lit(fb) -> float:
     return float((np.asarray(fb)[:, :3].sum(axis=1) > 0).mean())
+
+
+def jax_camera(camera):
+    """The JAX package's camera with the port camera's fields."""
+    return JaxCamera(**dataclasses.asdict(camera))
+
+
+def jax_mesh(shape, axes=("domains",)):
+    """A JAX device mesh over the first prod(shape) of the 8 virtual CPU
+    devices (tests/conftest.py)."""
+    import jax
+    from jax.sharding import Mesh
+
+    n = int(np.prod(shape))
+    return Mesh(np.array(jax.devices()[:n]).reshape(shape), axes)
+
+
+def grid_instances(mesh_of, n: int = 5, spacing: float = 0.5,
+                   scale: float = 0.4):
+    """SimpleApp's n x n instance grid on x = 0 (SimpleApp.cpp:164-186),
+    instance k using mesh `mesh_of(k)`."""
+    from gravit_tpu_torch.core.math3d import mat4_translate_scale
+    from gravit_tpu_torch.render.scene_build import Instance
+
+    half = n // 2
+    cells = [(i, j) for i in range(-half, n - half)
+             for j in range(-half, n - half)]
+    return [Instance(mesh_id=mesh_of(k), m=mat4_translate_scale(
+        (0.0, i * spacing, j * spacing), (scale,) * 3))
+        for k, (i, j) in enumerate(cells)]
