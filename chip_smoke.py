@@ -104,6 +104,33 @@ The schedulers (slice D; the many-domain scene at 512^2):
                  every field, and must return its input)
   Each of these frames is driven with the launch counts at 0 just before
   it and read just after; K1 and K2 must both have launched.
+Slice D part 2 and the facade (the normal entry points: `api.*`,
+`Renderer.render`, `writeimage`), all at 512^2 with CUDA-event and host
+times, launch counts and host syncs:
+  facade_flagship  make_scene(0) built through the api (createMesh ...
+                 addRenderer with the Image schedule) at depth 1 and 2:
+                 bit-equal to render_surface's frame, K1/K2 at {depth, 1},
+                 the written PPM equal to to_rgb8 of the frame
+  facade_simple_domain  SimpleApp through the api's Domain schedule over a
+                 LocalGroup(4), <= 1e-5 of the Image schedule's frame
+  sched_hybrid   the many-domain scene at depth 2 over a LocalGroup(4)
+                 with the accel, every domain on member 0: render, then
+                 render_hybrid (chunks of 2, tau 1.5, RayWeightedSpread):
+                 remaps >= 1, the hot member's load >= 1.5x lower, the
+                 frame <= 1e-5 of the static one; K1 and K2 held (as
+                 phases 3-4) on the first live launch of a member round
+                 after the first remap (a member with padded mesh slots
+                 where the placement makes one)
+  sched_volume_domain  trace_volume_domain with the stacked scene's slice
+                 axes: (i) wavelet_volume(64) in 2 x-bricks over a
+                 LocalGroup(2) (K4), (ii) wavelet_volume(256) in 4 x-bricks
+                 of 256x256x65 (over 4 MiB: K5) over a LocalGroup(4); each
+                 <= 1e-5 of the single-device trace_volume, <= 1e-4 of
+                 bytes off its impl="plain" twin, drops 0; the first K4 /
+                 K5 launch of a member round after an exchange held (as
+                 hold_K4); the kernel each member launched
+  facade_volume_domain  (ii) through the api's Domain schedule over a
+                 LocalGroup(4): bit-equal to sched_volume_domain's frame
 then the kernels line and, last, the device line.
 
 The scene is the flagship bench configuration (bench_inner.py --fast) with
@@ -120,6 +147,7 @@ import pathlib
 import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -129,6 +157,7 @@ sys.path.insert(0, str(ROOT))
 
 import torch  # noqa: E402
 
+from gravit_tpu_torch import api  # noqa: E402
 from gravit_tpu_torch import native as native_lib  # noqa: E402
 from gravit_tpu_torch import parallel  # noqa: E402
 from gravit_tpu_torch.accel.bvh import LEAF_PAD_ROWS, build_bvh  # noqa: E402
@@ -139,8 +168,9 @@ from gravit_tpu_torch.ops import bvh_traverse as bt  # noqa: E402
 from gravit_tpu_torch.ops import slice_march as sm  # noqa: E402
 from gravit_tpu_torch.render import tracer as tr  # noqa: E402
 from gravit_tpu_torch.render import volume_tracer as vt  # noqa: E402
-from gravit_tpu_torch.render.renderer import (render_surface,  # noqa: E402
-                                              render_volume)
+from gravit_tpu_torch.examples import simple_app as api_simple_app  # noqa: E402,E501
+from gravit_tpu_torch.render.renderer import (Renderer,  # noqa: E402
+                                              render_surface, render_volume)
 from gravit_tpu_torch.render.scene_build import Instance, build_scene  # noqa: E402
 from gravit_tpu_torch.render.tracer import (make_arena,  # noqa: E402
                                             trace_image, trace_image_fast,
@@ -148,6 +178,7 @@ from gravit_tpu_torch.render.tracer import (make_arena,  # noqa: E402
 from gravit_tpu_torch.parallel import LocalGroup, Mesh as GroupMesh  # noqa: E402
 from gravit_tpu_torch.render.volume_scene import build_volume_scene  # noqa: E402
 from gravit_tpu_torch.schedule import domain_sched as ds  # noqa: E402
+from gravit_tpu_torch.schedule import volume_domain as vd  # noqa: E402
 from gravit_tpu_torch.schedule.image_sched import (  # noqa: E402
     StreamedImageRenderer, trace_image_sharded)
 from gravit_tpu_torch.scene import image as img  # noqa: E402
@@ -215,12 +246,9 @@ def compiled_mesh(verts: np.ndarray, faces: np.ndarray, kd=None):
     return mesh.finish()
 
 
-def make_scene(seed: int = 0, bands: int = FLAGSHIP_BANDS, width: int = 512,
-               height: int = 512, max_depth: int = 1) -> SceneSpec:
-    """The flagship configuration (bench_inner.py:51-66) with a procedural
-    mesh: displaced_sphere(seed, bands) plus a floor quad under it in the
-    same mesh so that bounces hit something. Default lambert material, one
-    instance with the identity transform, one point light."""
+def flagship_geometry(seed: int = 0, bands: int = FLAGSHIP_BANDS) -> tuple:
+    """(vertices, 0-based faces) of make_scene's one mesh: the displaced
+    sphere and a floor quad under it."""
     verts, faces = displaced_sphere(seed, bands)
     floor_y = SPHERE_CENTER[1] - 1.2 * SPHERE_RADIUS
     floor = np.asarray([[-0.6, floor_y, -0.8], [0.6, floor_y, -0.8],
@@ -228,13 +256,23 @@ def make_scene(seed: int = 0, bands: int = FLAGSHIP_BANDS, width: int = 512,
                        np.float32)
     nv = verts.shape[0]
     faces = np.concatenate([faces, nv + np.asarray([[0, 3, 2], [0, 2, 1]])])
+    return np.concatenate([verts, floor]), faces
+
+
+def make_scene(seed: int = 0, bands: int = FLAGSHIP_BANDS, width: int = 512,
+               height: int = 512, max_depth: int = 1) -> SceneSpec:
+    """The flagship configuration (bench_inner.py:51-66) with a procedural
+    mesh: displaced_sphere(seed, bands) plus a floor quad under it in the
+    same mesh so that bounces hit something. Default lambert material, one
+    instance with the identity transform, one point light."""
+    verts, faces = flagship_geometry(seed, bands)
     camera = PerspectiveCamera(
         eye=(0.0, 0.1, 0.3), focus=(0.0, 0.1, -0.3), up=(0.0, 1.0, 0.0),
         fov=float(45.0 * np.pi / 180.0), film_width=width,
         film_height=height, samples=1, max_depth=max_depth,
         jitter_window=0.0)
     return SceneSpec(
-        meshes=[compiled_mesh(np.concatenate([verts, floor]), faces)],
+        meshes=[compiled_mesh(verts, faces)],
         instances=[Instance(mesh_id=0, m=np.eye(4, dtype=np.float32))],
         lights=[point_light((0.0, 0.1, 0.5), (1.0, 1.0, 1.0))],
         camera=camera)
@@ -359,22 +397,23 @@ class VolumeSpec:
     camera: PerspectiveCamera
 
 
-def bricked_wavelet(n: int) -> list:
-    """The wavelet split along x into two bricks that share one sample
-    plane; the right brick is padded to the left one's shape by repeating
-    its last plane (the two-brick scene of the reference's volume-domain
-    tests)."""
+def bricked_wavelet(n: int, parts: int = 2) -> list:
+    """The wavelet split along x into `parts` bricks of n/parts + 1 planes,
+    neighbours sharing one sample plane; the last brick is padded to the
+    others' shape by repeating its last plane (the two-brick scene of the
+    reference's volume-domain tests at parts=2)."""
     full = wavelet_volume(n)
-    s, half = full.samples, n // 2
+    s, w = full.samples, n // parts
     ones = np.ones(3, np.float32)
-    return [
-        Volume(samples=s[:, :, :half + 1].copy(),
-               origin=np.zeros(3, np.float32), spacing=ones, tf=full.tf),
-        Volume(samples=np.concatenate([s[:, :, half:], s[:, :, -1:]],
-                                      axis=2).copy(),
-               origin=np.array([half, 0, 0], np.float32), spacing=ones,
-               tf=full.tf),
-    ]
+    out = []
+    for i in range(parts):
+        brick = s[:, :, i * w:i * w + w + 1]
+        if brick.shape[2] < w + 1:
+            brick = np.concatenate([brick, s[:, :, -1:]], axis=2)
+        out.append(Volume(samples=brick.copy(),
+                          origin=np.array([i * w, 0, 0], np.float32),
+                          spacing=ones, tf=full.tf))
+    return out
 
 
 VOLUME_KINDS = ("plain", "iso", "amr", "slice", "bricks")
@@ -2049,6 +2088,420 @@ def volume_phases(dev, card: str, film: int = 512, small: int = 64,
 
 
 # ---------------------------------------------------------------------------
+# slice D part 2 and the facade: the api, render_hybrid, the volume domain
+# scheduler
+
+def traversal_counts() -> dict:
+    return {"closest": bt.launches_closest, "any_hit": bt.launches_any_hit}
+
+
+def slice_counts() -> dict:
+    return {"slice": sm.launches_slice, "slab": sm.launches_slab}
+
+
+def timed(fn, reps: int = 2) -> dict:
+    """CUDA-event ms over `reps` runs of fn() (no warm-up: a frame builds
+    its tables each time) beside the host clock of one more, and that
+    run's host syncs (torch.cuda's sync debug mode)."""
+    ms = cuda_ms(fn, reps=reps, warmup=0)
+    t0 = time.perf_counter()
+    _, stats = observe_frame(fn)
+    return dict(ms=ms, host_ms=(time.perf_counter() - t0) * 1e3,
+                host_syncs=stats["host_syncs"])
+
+
+def api_flagship(seed: int = 0, bands: int = FLAGSHIP_BANDS,
+                 width: int = 512, height: int = 512, depth: int = 1,
+                 device=None) -> SceneSpec:
+    """make_scene(seed)'s scene built through the port's api, as a GraviT
+    user builds it (createMesh, addMeshVertices, addMeshTriangles 1-based,
+    addMeshMaterial, finishMesh, addInstance, addPointLight, addCamera,
+    addFilm, addRenderer with the Image schedule), renderer "flagship".
+    Returns make_scene's own spec, the reference."""
+    spec = make_scene(seed, bands, width, height, max_depth=depth)
+    verts, faces = flagship_geometry(seed, bands)
+    api.gvtInit(device=device)
+    api.createMesh("flagship")
+    api.addMeshVertices("flagship", len(verts), verts.ravel())
+    api.addMeshTriangles("flagship", len(faces), (faces + 1).ravel())
+    mat = Material()
+    api.addMeshMaterial("flagship", mat.type, mat.kd, mat.alpha)
+    api.finishMesh("flagship")
+    api.addInstance("inst0", "flagship", np.eye(4, dtype=np.float32).ravel())
+    light = spec.lights[0]
+    api.addPointLight("light", light.position, light.color)
+    cam = spec.camera
+    api.addCamera("cam", cam.eye, cam.focus, cam.up, cam.fov, depth,
+                  cam.samples, cam.jitter_window)
+    api.addFilm("film", width, height, "flagship")
+    api.addRenderer("flagship", int(api.Adapter.Embree),
+                    int(api.Schedule.Image), "cam", "film")
+    return spec
+
+
+def api_frame(name: str) -> torch.Tensor:
+    api.render(name)
+    return Renderer.instance().framebuffer(name)
+
+
+def facade_phases(dev, card: str, film: int = 512) -> dict:
+    """The main path through the normal entry points: the flagship built
+    and rendered through the api (depth 1 and 2) against render_surface,
+    its image file; SimpleApp through the api's Domain schedule over a
+    LocalGroup(4). Returns the K1/K2 launch counts of these frames."""
+    counts = {"closest": 0, "any_hit": 0}
+    for depth in (1, 2):
+        Renderer.reset()
+        t0 = time.time()
+        spec = api_flagship(0, width=film, height=film, depth=depth,
+                            device=dev)
+        setup_s = time.time() - t0
+        bt.reset_launch_counts()
+        fb = api_frame("flagship")
+        torch.cuda.synchronize()
+        got = traversal_counts()
+        for k in counts:
+            counts[k] += got[k]
+        ref = render_surface(spec.meshes, spec.instances, spec.lights,
+                             spec.camera, device=dev)
+        expect = {"closest": depth, "any_hit": 1}
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Renderer.instance().write_image(
+                "flagship", str(pathlib.Path(tmp) / "flagship"))
+            ppm = img.read_ppm(path)
+        ppm_equal = bool(np.array_equal(ppm, img.to_rgb8(fb, film, film)))
+        bit_equal = bool(torch.equal(fb, ref))
+        t = timed(lambda: api_frame("flagship"))
+        cmp = compare_frames(fb, ref, film, film)
+        ok = (bit_equal and got == expect and ppm_equal and cmp["finite"]
+              and cmp["coverage"] > 0.3)
+        log("facade_flagship", depth=depth, card=card, film=[film, film],
+            triangles=spec.meshes[0].num_triangles, api_setup_s=setup_s,
+            launches=got, expected=expect,
+            bit_equal_to_render_surface=bit_equal, vs_render_surface=cmp,
+            ppm_equal_to_rgb8=ppm_equal, **t, ok=ok)
+        if not ok:
+            raise SystemExit(f"facade_flagship depth {depth} failed")
+
+    # SimpleApp through the api: Image on the card, then Domain over 4
+    Renderer.reset()
+    api_simple_app.build_scene(int(api.Schedule.Image), (film, film),
+                               device=dev)
+    ref = api_frame("Enzoschedule").clone()
+    Renderer.reset()
+    mesh4 = GroupMesh({"domains": LocalGroup(4, dev)})
+    api_simple_app.build_scene(int(api.Schedule.Domain), (film, film),
+                               mesh=mesh4)
+    bt.reset_launch_counts()
+    fb = api_frame("Enzoschedule")
+    torch.cuda.synchronize()
+    got = traversal_counts()
+    cmp = compare_frames(fb, ref, film, film)
+    t = timed(lambda: api_frame("Enzoschedule"))
+    ok = cmp["finite"] and cmp["coverage"] > 0.05 and cmp["float_max"] <= 1e-5
+    log("facade_simple_domain", card=card, film=[film, film], members=4,
+        launches=got, vs_image_schedule=cmp, tolerance=dict(float_max=1e-5),
+        **t, ok=ok)
+    if not ok:
+        raise SystemExit("facade_simple_domain failed")
+    Renderer.reset()
+    return counts
+
+
+def hybrid_phase(dev, card: str, film: int = 512) -> dict:
+    """render_hybrid on the many-domain scene at depth 2 over a
+    LocalGroup(4) with the accel, every domain placed on member 0: the
+    static render and the in-frame remap (chunks of 2 rounds, tau 1.5,
+    RayWeightedSpread). K1 and K2 held on the first live launch of a member
+    round after the first remap (a member with padded mesh slots if the
+    new placement makes one), and timed. Every chunk must drop no ray (a
+    chunk that drops is replayed: none may need to). Returns the launch
+    counts and the holds."""
+    spec = make_multi_scene(0, film, film, max_depth=2)
+    n = 4
+    t0 = time.time()
+    dr = ds.DomainRenderer.build(
+        spec.meshes, spec.instances, spec.lights,
+        GroupMesh({"domains": LocalGroup(n, dev)}),
+        owners=np.zeros(len(spec.instances), np.int32), use_accel=True)
+    setup_s = time.time() - t0
+    cam = spec.camera
+    bt.reset_launch_counts()
+    fb_static, load_static = dr.render(cam, return_load=True)
+    torch.cuda.synchronize()
+    got_static = traversal_counts()
+    load_static = [int(x) for x in load_static]
+
+    seen = {"remaps": 0, "chunks": []}
+    orig_rep, orig_trace = ds.DomainRenderer.repartition, ds.trace_domain
+
+    def repartition(self, resident):
+        seen["remaps"] += 1
+        out = orig_rep(self, resident)
+        seen.setdefault("placements", []).append(
+            [len(ds._local_mesh_ids(spec.instances, resident, d))
+             for d in range(n)])
+        return out
+
+    def trace(*args, **kw):
+        out = orig_trace(*args, **kw)
+        seen["chunks"].append(dict(rounds=args[7], cap=kw["exchange_cap"],
+                                   drops=int(out[1][0]),
+                                   peak=int(out[1][1])))
+        return out
+
+    def hybrid():
+        return dr.render_hybrid(cam, chunk=2, tau=1.5,
+                                policy="RayWeightedSpread", return_load=True)
+
+    ds.DomainRenderer.repartition, ds.trace_domain = repartition, trace
+    try:
+        bt.reset_launch_counts()
+        fb, load = hybrid()
+        torch.cuda.synchronize()
+        got = traversal_counts()
+    finally:
+        ds.DomainRenderer.repartition, ds.trace_domain = orig_rep, orig_trace
+    load = [int(x) for x in load]
+    cmp = compare_frames(fb, fb_static, film, film)
+    d = (fb[:, :3] - fb_static[:, :3]).abs().amax(dim=1)
+
+    # the holds: member rounds after the first remap, tagged by whether
+    # the member's tables have padded mesh slots
+    state = {"remapped": False}
+
+    def mark(self, resident):
+        state["remapped"] = True
+        return orig_rep(self, resident)
+
+    ds.DomainRenderer.repartition = mark
+    try:
+        caught = capture_round_launches(
+            lambda: hybrid(), "trace_round",
+            lambda call, acc: None if not state["remapped"] else
+            ("padded_member" if padded_slots(acc) else "member"))
+    finally:
+        ds.DomainRenderer.repartition = orig_rep
+    tag = ("padded_member" if {("padded_member", "closest"),
+                               ("padded_member", "any_hit")} <= set(caught)
+           else "member")
+    holds = {}
+    for kind in ("closest", "any_hit"):
+        if (tag, kind) not in caught:
+            raise SystemExit(f"sched_hybrid: no live {kind} launch after "
+                             "the remap")
+        label = f"hybrid_after_remap/{tag}/{kind}"
+        args = caught[(tag, kind)]
+        rec = hold_traversal(args, "K2_sched" if kind == "any_hit"
+                             else "K1_sched", launch=label)
+        holds[label] = dict(max_abs_err=rec["max_abs_err"])
+        res = bt.bvh_intersect_kernel(*args)
+        ms = cuda_ms(lambda: bt.bvh_intersect_kernel(*args), reps=20)
+        bound = bound_ms(args, res, rec)
+        log("time_launch", launch=label, card=card, ms=ms,
+            share_of_bound=bound["bound_ms"] / ms, **bound,
+            rays=int(args[0].shape[0]),
+            live_blocks=int((args[3] >= 0).sum()))
+    t = timed(lambda: hybrid()[0], reps=1)
+    drops = [c["drops"] for c in seen["chunks"]]
+    fall = max(load_static) / max(1, max(load))
+    ok = (seen["remaps"] >= 1 and fall >= 1.5 and cmp["float_max"] <= 1e-5
+          and cmp["finite"] and got["closest"] > 0 and got["any_hit"] > 0
+          and not any(drops))
+    log("sched_hybrid", card=card, film=[film, film], depth=2, members=n,
+        setup_s=setup_s, launches=got, launches_static=got_static,
+        remaps=seen["remaps"],
+        placements=seen.get("placements"), chunks=seen["chunks"],
+        drops=sum(drops), load_static=load_static,
+        load_hybrid=load, hot_load_fall=fall, vs_static=cmp,
+        pixels_bit_equal=float((d == 0).float().mean()),
+        held_tag=tag, tolerance=dict(float_max=1e-5, hot_load_fall=1.5),
+        **t, ok=ok)
+    if not ok:
+        raise SystemExit("sched_hybrid failed")
+    return dict(counts={k: got[k] + got_static[k] for k in got},
+                held=holds)
+
+
+def volume_domain_spec(n: int, parts: int, film: int = 512) -> VolumeSpec:
+    """wavelet_volume(n) split into `parts` x-bricks under the volume bench
+    camera (make_volume_scene's: eye 4n on the diagonal, fov 30, up +z)."""
+    base = make_volume_scene("plain", n, film, film)
+    eye4 = np.eye(4, dtype=np.float32)
+    return VolumeSpec(volumes=bricked_wavelet(n, parts),
+                      instances=[(i, eye4) for i in range(parts)],
+                      camera=base.camera)
+
+
+def volume_domain_frame(spec: VolumeSpec, members: int, dev,
+                        impl=None) -> tuple:
+    """(frame, drops) of trace_volume_domain over a LocalGroup(members)
+    with the stacked scene's slice axes, as the api's Domain arm runs it."""
+    stacked, owners = vd.partition_volume_scene(
+        spec.volumes, spec.instances, members, device=dev)
+    rays = spec.camera.generate_rays(dev, volume=True)
+    cam = spec.camera
+    return vd.trace_volume_domain(
+        stacked, owners, make_arena(rays, 0), cam.film_width,
+        cam.film_height, GroupMesh({"domains": LocalGroup(members, dev)}),
+        slice_axes=vt.slice_axes_for(stacked, rays.direction),
+        return_stats=True, impl=impl)
+
+
+def capture_member_slices(fn, members: int) -> tuple:
+    """Run fn() and return the slice launches it made, each tagged with the
+    member round it ran in ((round, member, call)) and whether an exchange
+    had run before that round; and the rounds after which an exchange
+    ran. A round calls march_round once per member, in member order."""
+    seen, state = [], {"march": -1, "exchanged_after": []}
+    orig_m, orig_k, orig_x = vt.march_round, sm._run_kernel, \
+        vd._merge_incoming
+
+    def march(*args, **kw):
+        state["march"] += 1
+        return orig_m(*args, **kw)
+
+    def kernel(*args):
+        rnd, member = divmod(state["march"], members)
+        seen.append(dict(round=rnd, member=member, call=args,
+                         after_exchange=any(r < rnd for r in
+                                            state["exchanged_after"])))
+        return orig_k(*args)
+
+    def merge(*args, **kw):
+        rnd = state["march"] // members
+        if rnd not in state["exchanged_after"]:
+            state["exchanged_after"].append(rnd)
+        return orig_x(*args, **kw)
+
+    vt.march_round, sm._run_kernel, vd._merge_incoming = march, kernel, merge
+    try:
+        out = fn()
+    finally:
+        vt.march_round, sm._run_kernel, vd._merge_incoming = (
+            orig_m, orig_k, orig_x)
+    torch.cuda.synchronize()
+    return out, seen, state["exchanged_after"]
+
+
+def volume_domain_phases(dev, card: str, film: int = 512, small: int = 64,
+                         big: int = 256) -> dict:
+    """The volume domain scheduler on the card: (i) wavelet_volume(small)
+    in 2 x-bricks over a LocalGroup(2) (K4), (ii) wavelet_volume(big) in 4
+    x-bricks over a LocalGroup(4) (bricks over SLAB_BYTES: K5); each frame
+    against the single-device trace_volume of the same bricks and its
+    impl="plain" twin; a K4 and a K5 launch of a member round after an
+    exchange held against the plain version. Then (ii) through the api's
+    Domain schedule: bit-equal to the scheduler's frame. Returns the slice
+    launch counts and the holds."""
+    counts = {"slice": 0, "slab": 0}
+    holds = {}
+    frames = {}
+    parts_ii = 4
+    occupancy = slice_occupancy()
+    for name, n, parts in (("i", small, 2), ("ii", big, parts_ii)):
+        spec = volume_domain_spec(n, parts, film)
+        brick = spec.volumes[0].samples
+        brick_bytes = brick.nbytes
+        scene1 = build_volume_scene(spec.volumes, spec.instances, device=dev)
+        rays = spec.camera.generate_rays(dev, volume=True)
+        sm.reset_launch_counts()
+        single = vt.trace_volume(scene1, make_arena(rays, 0), film, film,
+                                 slice_axes=vt.slice_axes_for(
+                                     scene1, rays.direction))
+        torch.cuda.synchronize()
+        got_single = slice_counts()
+        sm.reset_launch_counts()
+        (fb, drops), launches, exchanged = capture_member_slices(
+            lambda: volume_domain_frame(spec, parts, dev), parts)
+        torch.cuda.synchronize()
+        got = slice_counts()
+        for k in counts:
+            counts[k] += got[k] + got_single[k]
+        frames[name] = fb
+        plain, plain_drops = volume_domain_frame(spec, parts, dev,
+                                                 impl="plain")
+        vs_single = compare_frames(fb, single, film, film)
+        vs_plain = compare_frames(fb, plain, film, film)
+        kinds = {}
+        for rec in launches:
+            plan = rec["call"][0]
+            kind = "K5" if plan.S.shape[0] > rec["call"][3] else "K4"
+            kinds.setdefault(rec["member"], []).append(kind)
+        # hold the first launch of a member round after an exchange
+        after = [r for r in launches if r["after_exchange"]]
+        if not after:
+            raise SystemExit(f"sched_volume_domain ({name}): no slice launch "
+                             "after an exchange")
+        first = after[0]
+        plan = first["call"][0]
+        kname = "K5" if plan.S.shape[0] > first["call"][3] else "K4"
+        rec = hold_slice(f"{kname}_volume_domain_{name}", first["call"])
+        holds[f"{kname}/{name}"] = dict(
+            max_abs_err=rec["max_abs_err"], round=first["round"],
+            member=first["member"])
+        time_slice_launch(f"{kname}_volume_domain_{name}", first["call"],
+                          card, rec["pairs"][0], occupancy,
+                          rec["busy_blocks"])
+        t = timed(lambda: volume_domain_frame(spec, parts, dev)[0], reps=1)
+        want = "slice" if name == "i" else "slab"
+        ok = (int(drops) == 0 and int(plain_drops) == 0
+              and vs_single["float_max"] <= 1e-5
+              and vs_plain["byte_frac"] <= 1e-4 and vs_single["finite"]
+              and vs_single["coverage"] > 0.05 and got[want] > 0)
+        log("sched_volume_domain", config=name, card=card, film=[film, film],
+            members=parts, brick=list(brick.shape),
+            brick_mib=brick_bytes / 2**20,
+            over_slab_bytes=brick_bytes > sm.SLAB_BYTES, launches=got,
+            launches_single_device=got_single,
+            kernels_by_member={str(k): v for k, v in sorted(kinds.items())},
+            exchanges_after_rounds=exchanged, drops=int(drops),
+            vs_single_device=vs_single, vs_plain=vs_plain,
+            held=f"{kname} round {first['round']} member {first['member']}",
+            tolerance=dict(float_max=1e-5, plain_byte_frac=1e-4), **t, ok=ok)
+        if not ok:
+            raise SystemExit(f"sched_volume_domain ({name}) failed")
+        del scene1, single, plain
+
+    # (ii) through the api: the Domain schedule over a LocalGroup(4)
+    spec = volume_domain_spec(big, parts_ii, film)
+    Renderer.reset()
+    api.gvtInit(mesh=GroupMesh({"domains": LocalGroup(parts_ii, dev)}))
+    db = api._db()
+    for i, b in enumerate(spec.volumes):
+        api.createVolume(f"vol{i}")
+        db.find(f"vol{i}")["tf"] = b.tf
+        api.addVolumeSamples(f"vol{i}", b.samples.reshape(-1),
+                             list(b.counts), list(b.origin), list(b.spacing),
+                             b.sampling_rate)
+        api.addInstance(f"inst{i}", f"vol{i}",
+                        np.eye(4, dtype=np.float32).ravel())
+    cam = spec.camera
+    api.addCamera("cam", cam.eye, cam.focus, cam.up, cam.fov, 1,
+                  cam.samples, cam.jitter_window)
+    api.addFilm("film", film, film, "vol")
+    api.addRenderer("vr", int(api.Adapter.Pvol), int(api.Schedule.Domain),
+                    "cam", "film", volume=True)
+    sm.reset_launch_counts()
+    fb = api_frame("vr")
+    torch.cuda.synchronize()
+    got = slice_counts()
+    for k in counts:
+        counts[k] += got[k]
+    equal = bool(torch.equal(fb, frames["ii"]))
+    t = timed(lambda: api_frame("vr"), reps=1)
+    ok = equal and got["slab"] > 0
+    log("facade_volume_domain", card=card, film=[film, film],
+        members=parts_ii, launches=got, bit_equal_to_scheduler=equal,
+        vs_scheduler=compare_frames(fb, frames["ii"], film, film), **t,
+        ok=ok)
+    Renderer.reset()
+    if not ok:
+        raise SystemExit("facade_volume_domain failed")
+    return dict(counts=counts, held=holds)
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2252,6 +2705,12 @@ def main() -> int:
     sched = sched_phases(dev, card)
     for k in main_counts:
         main_counts[k] += sched["counts"][k]
+    # ---- slice D part 2 and the facade: the api, render_hybrid ----------
+    facade = facade_phases(dev, card)
+    hybrid = hybrid_phase(dev, card)
+    for k in main_counts:
+        main_counts[k] += facade[k] + hybrid["counts"][k]
+    sched["held"].update(hybrid["held"])
     # the scheduler holds' errors count with the kernel they held
     sched_err = {kind: max([h["max_abs_err"] for label, h in
                             sched["held"].items() if label.endswith(kind)]
@@ -2273,7 +2732,16 @@ def main() -> int:
             ("bvh_traverse (table over 6 MB, K3)", "K3_subset", k3,
              k3_launches, None))]
 
-    kernel_rows += volume_phases(dev, card)
+    volume_rows = volume_phases(dev, card)
+    # ---- the volume domain scheduler, and through the api ---------------
+    vdom = volume_domain_phases(dev, card)
+    for row, key, kid in ((volume_rows[0], "slice", "K4"),
+                          (volume_rows[1], "slab", "K5")):
+        row["launches"] += vdom["counts"][key]
+        row["max_abs_err"] = max([row["max_abs_err"]] + [
+            h["max_abs_err"] for label, h in vdom["held"].items()
+            if label.startswith(kid)])
+    kernel_rows += volume_rows
     log("done", seconds=time.time() - t_start)
 
     print(json.dumps({"kernels": kernel_rows}))

@@ -74,3 +74,21 @@ def intersect_closest(o, d, ray_mesh, active, tri_v0, tri_e1, tri_e2,
         best_u = torch.where(closer, u[rows, j], best_u)
         best_v = torch.where(closer, v[rows, j], best_v)
     return Hit(best_t, best_p, best_u, best_v)
+
+
+def intersect_any(o, d, ray_mesh, active, tri_v0, tri_e1, tri_e2, tri_mesh,
+                  tile: int = 2048) -> torch.Tensor:
+    """Any-hit (occlusion) test of object-space rays against the triangle
+    soup; returns (N,) bool occluded. Shadow quirk parity: the direction is
+    unnormalized and tfar=FLT_MAX (EmbreeMeshAdapter.cpp:277-278 sets it
+    even for occlusion), so occluders beyond the light also block."""
+    occluded = torch.zeros((o.shape[0],), dtype=torch.bool, device=o.device)
+    live = active & (ray_mesh >= 0)
+    for s in range(0, tri_v0.shape[0], tile):
+        sl = slice(s, s + tile)
+        hit, _, _, _ = moller_trumbore(
+            o[:, None, :], d[:, None, :], tri_v0[None, sl], tri_e1[None, sl],
+            tri_e2[None, sl], RAY_EPSILON, FLT_MAX)
+        hit = hit & (tri_mesh[None, sl] == ray_mesh[:, None]) & live[:, None]
+        occluded = occluded | hit.any(dim=1)
+    return occluded

@@ -344,21 +344,26 @@ def slice_axes_for(scene: VolumeSceneData, directions) -> tuple:
     volume qualifies when its AMR/iso/slice features (if any) fit the slice
     engine and every OBJECT-space ray, for EVERY instance referencing it,
     passes the dominant-axis gate (_slice_gate). Computed once per camera.
-    The stacked per-device scene of the volume-domain scheduler is not
-    ported yet."""
+    Accepts both a flat scene and the stacked per-device scene of
+    schedule/volume_domain.py::partition_volume_scene (a leading device axis
+    on the tensors; the transforms are equal across devices and inst_vol
+    marks foreign instances -1, so a slot is used by an instance where ANY
+    device uses it)."""
     if not scene.vol_meta:
         return ()
-    if scene.inst_minv.ndim == 4:
-        raise NotImplementedError(
-            "stacked per-device volume scenes come with the schedulers "
-            "(ROADMAP slice D)")
     iv = scene.inst_vol.cpu().numpy()
+    minv = scene.inst_minv
+    if minv.dim() == 4:                    # stacked: (n_dev, I, 4, 4)
+        minv = minv[0]
+        uses = [(iv == v).any(axis=0) for v in range(scene.num_volumes)]
+    else:
+        uses = [iv == v for v in range(scene.num_volumes)]
     out = []
     for v in range(scene.num_volumes):
         if _has_features(scene, v) and not _features_on_slice_ok(scene, v):
             out.append(None)
             continue
-        minvs = [scene.inst_minv[i] for i in np.nonzero(iv == v)[0]]
+        minvs = [minv[i] for i in np.nonzero(uses[v])[0]]
         ok, axis, flip = _slice_gate(minvs, directions) if minvs \
             else (False, 0, False)
         out.append((axis, flip) if ok else None)

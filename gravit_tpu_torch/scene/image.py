@@ -7,6 +7,8 @@ The framebuffer is a flat `(W*H, 4)` float32 tensor.
 
 from __future__ import annotations
 
+import pathlib
+
 import numpy as np
 import torch
 
@@ -66,3 +68,28 @@ def write_ppm(path: str, fb, width: int, height: int) -> None:
     with open(path, "wb") as f:
         f.write(b"P6\n%d %d\n255\n" % (width, height))
         f.write(rgb.tobytes())
+
+
+def read_ppm(path: str) -> np.ndarray:
+    """Read a binary P6 PPM -> (H, W, 3) uint8, top row first (no comment
+    support: the reference writer emits none)."""
+    data = pathlib.Path(path).read_bytes()
+    parts = data.split(maxsplit=4)
+    if parts[0] != b"P6":
+        raise ValueError(f"not a binary PPM: {path}")
+    w, h, maxval = int(parts[1]), int(parts[2]), int(parts[3])
+    if maxval != 255:
+        raise ValueError(f"{path}: maxval {maxval}, expected 255")
+    raw = parts[4][: w * h * 3]
+    return np.frombuffer(raw, dtype=np.uint8).reshape(h, w, 3)
+
+
+def image_diff(a: np.ndarray, b: np.ndarray) -> float:
+    """Fraction of differing pixel bytes, the ImageDiff.cpp metric."""
+    if a.shape != b.shape:
+        return 1.0
+    return float(np.mean(a.astype(np.int32) != b.astype(np.int32)))
+
+
+def max_byte_error(a: np.ndarray, b: np.ndarray) -> int:
+    return int(np.max(np.abs(a.astype(np.int32) - b.astype(np.int32))))

@@ -13,6 +13,7 @@ import enum
 from typing import Sequence
 
 import numpy as np
+import torch
 
 
 class LightKind(enum.IntEnum):
@@ -94,3 +95,32 @@ def bundle_lights(lights: Sequence[Light]) -> LightBundle:
             bu, bw = _area_basis(light.normal)
             u[i], w[i] = bu.astype(np.float32), bw.astype(np.float32)
     return LightBundle(kind, pos, col, u, w, width, height)
+
+
+def sample_position(bundle: LightBundle, i: int, xi: torch.Tensor):
+    """Sample the light surface; xi (N, 2) uniforms -> (N, 3) positions.
+    Point/ambient lights return the fixed position; area lights replicate
+    AreaLight::GetPosition (Light.cpp:115-128)."""
+    pos = torch.as_tensor(bundle.position[i], device=xi.device)
+    if bundle.kind[i] != int(LightKind.AREA):
+        return pos.expand(xi.shape[0], 3)
+    x = (xi[:, 0] - 0.5) * float(bundle.width[i])
+    z = (xi[:, 1] - 0.5) * float(bundle.height[i])
+    u = torch.as_tensor(bundle.u[i], device=xi.device)
+    w = torch.as_tensor(bundle.w[i], device=xi.device)
+    return pos + x[:, None] * u + z[:, None] * w
+
+
+def contribution(bundle: LightBundle, i: int, hit_point: torch.Tensor,
+                 sample_pos: torch.Tensor):
+    """Li at the hit point: color * min(1, 1/dist) (Light.cpp:58-62,
+    129-133); ambient lights contribute their color unattenuated
+    (Light.cpp:70)."""
+    col = torch.as_tensor(bundle.color[i], device=hit_point.device)
+    if bundle.kind[i] == int(LightKind.AMBIENT):
+        return col.expand(hit_point.shape)
+    dv = sample_pos - hit_point
+    d = torch.sqrt(dv[:, 0] * dv[:, 0] + dv[:, 1] * dv[:, 1]
+                   + dv[:, 2] * dv[:, 2])
+    fall = torch.clamp(1.0 / torch.clamp(d, min=1e-30), max=1.0)
+    return col * fall[:, None]

@@ -140,3 +140,16 @@ def shade_full(mat_type, kd, ks, alpha, embree_params, ray_dir, ray_w,
     emb = 2.0 * emb * ray_w[:, None]
     is_emb = (mat_type >= int(MaterialType.EMBREE_MATERIAL_METAL))[:, None]
     return torch.where(is_emb, emb, legacy)
+
+
+def shade_with_light(mat_type, kd, ks, alpha, ray_dir, ray_w, normal,
+                     hit_point, light_pos, light_contrib):
+    """Full Shade(): model * Li, clamped; returns (color, valid) per ray.
+    valid=False when NdotL == 0 or Li == 0 (Shade() returns false and no
+    shadow ray is spawned, Material.cpp:97-101)."""
+    wi = light_pos - hit_point
+    wi = wi / torch.sqrt(torch.clamp(dot3(wi, wi), min=1e-30))[:, None]
+    ndotl = torch.clamp(dot3(normal, wi), min=0.0)
+    valid = (ndotl > 0.0) & (light_contrib != 0.0).any(dim=-1)
+    color = shade(mat_type, kd, ks, alpha, ray_dir, ray_w, normal, wi)
+    return torch.clamp(color * light_contrib, 0.0, 1.0), valid

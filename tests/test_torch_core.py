@@ -150,3 +150,130 @@ def test_ray_arena_zeros_equal():
         np.testing.assert_array_equal(getattr(got, f.name).numpy(),
                                       np.asarray(getattr(ref, f.name)),
                                       err_msg=f.name)
+
+
+# ---- stragglers with no caller on a render path (tests/test_core.py) ------
+
+def test_intersect_any_equal_jax():
+    """intersect_any: occluded flags equal to JAX's on a seeded soup of 300
+    triangles over 3 meshes (two tiles of 256), rays with mesh ids -1..2,
+    some inactive; and the analytic case of tests/test_core.py."""
+    from gravit_tpu.ops import intersect as jax_intersect
+
+    from gravit_tpu_torch.ops import intersect
+
+    r = np.random.default_rng(11)
+    t, n = 300, 512
+    v0 = r.uniform(-1, 1, (t, 3)).astype(np.float32)
+    e1 = r.uniform(-0.5, 0.5, (t, 3)).astype(np.float32)
+    e2 = r.uniform(-0.5, 0.5, (t, 3)).astype(np.float32)
+    tri_mesh = r.integers(0, 3, t).astype(np.int32)
+    o = r.uniform(-2, 2, (n, 3)).astype(np.float32)
+    d = r.normal(size=(n, 3)).astype(np.float32)
+    ray_mesh = r.integers(-1, 3, n).astype(np.int32)
+    active = r.uniform(size=n) < 0.9
+    args = (o, d, ray_mesh, active, v0, e1, e2, tri_mesh)
+    ref = jax_intersect.intersect_any(*(jnp.asarray(a) for a in args),
+                                      tile=256)
+    got = intersect.intersect_any(*(torch.from_numpy(a) for a in args),
+                                  tile=256)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    assert 0 < int(got.sum()) < n
+    one = [np.asarray(a, dt) for a, dt in (
+        ([[0.5, 0.5, 1.0]], np.float32), ([[0.0, 0.0, -1.0]], np.float32),
+        ([0], np.int32), ([True], bool), ([[0.0, 0.0, -1.0]], np.float32),
+        ([[2.0, 0.0, 0.0]], np.float32), ([[0.0, 2.0, 0.0]], np.float32),
+        ([0], np.int32))]
+    assert bool(intersect.intersect_any(*(torch.from_numpy(a)
+                                          for a in one))[0])
+
+
+@pytest.mark.parametrize("update_eps", [True, False])
+def test_aabb_helpers_equal_jax(update_eps):
+    """aabb_intersect and aabb_entry_exit bit-equal to JAX's on seeded boxes
+    and rays (one box broadcast over rays, and a (rays, boxes) grid);
+    merge_aabbs and aabb_surface_area equal."""
+    from gravit_tpu.core import math3d as jax_math
+
+    from gravit_tpu_torch.core import math3d
+
+    r = np.random.default_rng(5)
+    lo = r.uniform(-1, 0, (16, 3)).astype(np.float32)
+    hi = lo + r.uniform(0.1, 1, (16, 3)).astype(np.float32)
+    o = r.uniform(-2, 2, (64, 3)).astype(np.float32)
+    inv = (1.0 / r.normal(size=(64, 3))).astype(np.float32)
+    tlim = r.uniform(0.5, 5, 64).astype(np.float32)
+    for shape in ("one", "grid"):
+        if shape == "one":
+            args = (lo[0], hi[0], o, inv, tlim)
+        else:
+            args = (lo[None], hi[None], o[:, None], inv[:, None],
+                    tlim[:, None])
+        ref = jax_math.aabb_intersect(*(jnp.asarray(a) for a in args),
+                                      update_eps=update_eps)
+        got = math3d.aabb_intersect(*(torch.from_numpy(
+            np.ascontiguousarray(a)) for a in args), update_eps=update_eps)
+        for g, w in zip(got, ref):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        ref = jax_math.aabb_entry_exit(*(jnp.asarray(a) for a in args[:4]))
+        got = math3d.aabb_entry_exit(*(torch.from_numpy(
+            np.ascontiguousarray(a)) for a in args[:4]))
+        for g, w in zip(got, ref):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    for g, w in zip(math3d.merge_aabbs(lo, hi), jax_math.merge_aabbs(lo, hi)):
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(math3d.aabb_surface_area(lo, hi),
+                                  jax_math.aabb_surface_area(lo, hi))
+
+
+def test_light_sample_and_contribution_equal_jax():
+    """sample_position and contribution for a point, an area and an ambient
+    light, within rtol 1e-6 (the norm's sum and sqrt may round apart by an
+    ulp between XLA and torch)."""
+    from gravit_tpu.scene import light as jax_light
+
+    from gravit_tpu_torch.scene import light
+
+    lights = [light.point_light((1.0, 2.0, 3.0), (0.9, 0.8, 0.7)),
+              light.area_light((0.0, 1.5, -1.0), (1.0, 1.0, 0.5),
+                               (0.3, -1.0, 0.2), 0.5, 0.4),
+              light.ambient_light((0.2, 0.3, 0.4))]
+    bundle = light.bundle_lights(lights)
+    jbundle = jax_light.bundle_lights(
+        [jax_light.Light(**dataclasses.asdict(x)) for x in lights])
+    r = np.random.default_rng(8)
+    xi = r.uniform(size=(128, 2)).astype(np.float32)
+    hit = r.uniform(-1, 1, (128, 3)).astype(np.float32)
+    for i in range(3):
+        pos = light.sample_position(bundle, i, torch.from_numpy(xi))
+        jpos = jax_light.sample_position(jbundle, i, jnp.asarray(xi))
+        np.testing.assert_allclose(pos.numpy(), np.asarray(jpos), rtol=1e-6,
+                                   atol=1e-7)
+        li = light.contribution(bundle, i, torch.from_numpy(hit), pos)
+        jli = jax_light.contribution(jbundle, i, jnp.asarray(hit), jpos)
+        np.testing.assert_allclose(li.numpy(), np.asarray(jli), rtol=1e-6)
+    assert float((pos - pos[:1]).abs().max()) == 0.0   # ambient: fixed
+
+
+def test_shade_with_light_equal_jax():
+    """shade_with_light: color within the shade test's tolerance (rtol
+    1e-6, atol 1e-7), the valid flags equal (NdotL == 0 or Li == 0 spawn no
+    shadow ray), on seeded rays with some lights behind the surface and
+    some contributions zero."""
+    x = _shade_inputs(9)
+    n = x["kd"].shape[0]
+    r = np.random.default_rng(9)
+    hit = r.uniform(-1, 1, (n, 3)).astype(np.float32)
+    lpos = r.uniform(-3, 3, (n, 3)).astype(np.float32)
+    contrib = r.uniform(0, 1, (n, 3)).astype(np.float32)
+    contrib[::7] = 0.0
+    args = (x["mat_type"], x["kd"], x["ks"], x["alpha"], x["ray_dir"],
+            x["ray_w"], x["normal"], hit, lpos, contrib)
+    ref_c, ref_v = jax_material.shade_with_light(
+        *(jnp.asarray(a) for a in args))
+    got_c, got_v = material.shade_with_light(
+        *(torch.from_numpy(np.ascontiguousarray(a)) for a in args))
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(ref_v))
+    np.testing.assert_allclose(got_c.numpy(), np.asarray(ref_c), rtol=1e-6,
+                               atol=1e-7)
+    assert 0 < int(got_v.sum()) < n

@@ -520,10 +520,15 @@ def test_render_raises_after_max_grows(monkeypatch):
 
 
 def test_render_hybrid_not_ported():
+    """render_hybrid is ported now (it raised NotImplementedError until
+    the in-frame remap came; tests/test_torch_hybrid.py holds it against
+    JAX): on the grid over 2 members it gives render()'s frame, bit for
+    bit, and counts every member's load."""
     meshes, instances, lights, cam = grid()
     dr = ds.DomainRenderer.build(meshes, instances, lights, local_mesh(2))
-    with pytest.raises(NotImplementedError, match="render_hybrid"):
-        dr.render_hybrid(cam)
+    fb, load = dr.render_hybrid(cam, return_load=True)
+    assert torch.equal(fb[:, :3], dr.render(cam)[:, :3])
+    assert load.shape == (2,) and int(load.min()) > 0
 
 
 def test_mesh_layout():

@@ -139,9 +139,13 @@ def test_slice_axes_for():
     d_bad = np.concatenate([D_DOWN, np.array([[1.0, 0.0, 0.0]])])
     assert tvt.slice_axes_for(scene, d_bad) == (None, None)
     assert tvt.slice_axes_for(scene.replace(vol_meta=()), D_DOWN) == ()
-    stacked = scene.replace(inst_minv=scene.inst_minv[None])
-    with pytest.raises(NotImplementedError):
-        tvt.slice_axes_for(stacked, D_DOWN)
+    # the stacked per-device form (schedule/volume_domain.py): a leading
+    # device axis; a brick is used where ANY device's instance uses it
+    stacked = scene.replace(inst_minv=scene.inst_minv[None].expand(2, -1, -1,
+                                                                   -1),
+                            inst_vol=torch.tensor([[0, -1], [-1, 1]]))
+    assert tvt.slice_axes_for(stacked, D_DOWN) == ((2, True), (2, True))
+    assert tvt.slice_axes_for(stacked, d_bad) == (None, None)
 
 
 # ---------------------------------------------------------------------------

@@ -127,3 +127,69 @@ def grid_instances(mesh_of, n: int = 5, spacing: float = 0.5,
     return [Instance(mesh_id=mesh_of(k), m=mat4_translate_scale(
         (0.0, i * spacing, j * spacing), (scale,) * 3))
         for k, (i, j) in enumerate(cells)]
+
+
+def assert_tree_equal(a, b, path="") -> None:
+    """Two host objects of the two packages are equal, field for field:
+    dataclasses by field, sequences and dicts by item, arrays by value and
+    shape (never by dtype name: numpy on both sides)."""
+    if dataclasses.is_dataclass(a):
+        assert type(a).__name__ == type(b).__name__, path
+        for f in dataclasses.fields(a):
+            assert_tree_equal(getattr(a, f.name), getattr(b, f.name),
+                              f"{path}.{f.name}")
+    elif isinstance(a, dict):
+        assert set(a) == set(b), path
+        for k in a:
+            assert_tree_equal(a[k], b[k], f"{path}[{k!r}]")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            assert_tree_equal(x, y, f"{path}[{i}]")
+    elif isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b),
+                                      err_msg=path)
+        assert np.asarray(a).dtype == np.asarray(b).dtype, path
+    else:
+        assert a == b, (path, a, b)
+
+
+def jax_volumes(volumes) -> list:
+    """The JAX package's Volumes with the port Volumes' numpy fields."""
+    from test_torch_volume_scene import to_jax_volume
+
+    return [to_jax_volume(v) for v in volumes]
+
+
+def bricked_wavelet(n: int = 32):
+    """The wavelet of n^3 samples split into two x-bricks of n x n x
+    (n/2 + 1), the right one padded by its last plane
+    (tests/test_volume_domain.py::_bricked_wavelet, chip_smoke's
+    bricked_wavelet): (port volumes, the same as the JAX package's)."""
+    import chip_smoke
+
+    port = chip_smoke.bricked_wavelet(n)
+    return port, jax_volumes(port)
+
+
+def api_volume_bricks(mod, bricks, eye, focus, film: int,
+                      schedule: int) -> None:
+    """Drive an api module (the port's or the JAX package's) through
+    tests/test_api.py's volume scene: one volume per brick (its samples
+    x-fastest, its own TF), an identity instance each, a camera at `eye`
+    looking at `focus` (up +z, fov 30, depth 1), a film x film film and a
+    volume renderer "vr" with `schedule`. Call mod.gvtInit first."""
+    for i, b in enumerate(bricks):
+        name = f"b{i}"
+        mod.createVolume(name)
+        mod._db().find(name)["tf"] = b.tf
+        nz, ny, nx = b.samples.shape
+        mod.addVolumeSamples(name, b.samples.reshape(-1), [nx, ny, nz],
+                             list(b.origin), list(b.spacing), 1.0)
+        mod.addInstance(f"i{i}", name,
+                        np.eye(4, dtype=np.float32).flatten())
+    mod.addCamera("cam", list(eye), list(focus), [0.0, 0.0, 1.0],
+                  30 * np.pi / 180, 1, 1, 0.5)
+    mod.addFilm("film", film, film, "out")
+    mod.addRenderer("vr", int(mod.Adapter.Pvol), schedule, "cam", "film",
+                    volume=True)
