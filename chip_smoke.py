@@ -131,6 +131,31 @@ times, launch counts and host syncs:
                  hold_K4); the kernel each member launched
   facade_volume_domain  (ii) through the api's Domain schedule over a
                  LocalGroup(4): bit-equal to sched_volume_domain's frame
+Slice E: training, checkpointing and the dry run (SimpleApp and V64 at
+512^2; no TPU kernel lies on the training path, so each of these phases
+also checks that the port's kernels were launched no time):
+  train_simple   train.loss_fn's gradient (4 rounds, brute intersection)
+                 on the card against the same on the CPU; the directional
+                 finite difference along kd; the default train step's
+                 CUDA-event ms split into forward, backward and optimiser,
+                 its peak memory, host syncs, operators and launches; 25
+                 Adam steps at lr 5e-2 from light_color x 0.3 bring the
+                 loss below 0.66 x its start
+  train_sharded  make_sharded_train_step over a LocalGroup(4): the
+                 single-device loss, the gradient within SHARD_TOL of it
+                 (not 4 x it); a one-rank NCCL DistGroup step bit-equal to
+                 LocalGroup(1)'s under torch's deterministic algorithms
+  checkpoint     save from card tensors, restore onto the card; the resumed
+                 step bit-equal to the uninterrupted one
+  train_volume   V64: the samples' gradient through trace_volume(unroll=
+                 True, max_rounds=4), the samples' and the colour LUT's
+                 through slice_march_reference, against central differences
+  dryrun         gravit_tpu_torch.dryrun.dryrun_multichip(4) on the card:
+                 the accel and replica-routed frames within 1e-5 of the
+                 brute one, the sums within 1e-5 relative of the JAX dry
+                 run's (golden), a live K1 and K2 launch of an accel
+                 member's round held against the plain versions; its K1/K2
+                 launches and the holds' errors join the kernels line
 then the kernels line and, last, the device line.
 
 The scene is the flagship bench configuration (bench_inner.py --fast) with
@@ -158,6 +183,8 @@ sys.path.insert(0, str(ROOT))
 import torch  # noqa: E402
 
 from gravit_tpu_torch import api  # noqa: E402
+from gravit_tpu_torch import dryrun  # noqa: E402
+from gravit_tpu_torch.dryrun import bricked_wavelet  # noqa: E402
 from gravit_tpu_torch import native as native_lib  # noqa: E402
 from gravit_tpu_torch import parallel  # noqa: E402
 from gravit_tpu_torch.accel.bvh import LEAF_PAD_ROWS, build_bvh  # noqa: E402
@@ -166,9 +193,13 @@ from gravit_tpu_torch.core.math3d import mat4_translate_scale  # noqa: E402
 from gravit_tpu_torch.ops import _build  # noqa: E402
 from gravit_tpu_torch.ops import bvh_traverse as bt  # noqa: E402
 from gravit_tpu_torch.ops import slice_march as sm  # noqa: E402
+from gravit_tpu_torch.render import checkpoint, train  # noqa: E402
 from gravit_tpu_torch.render import tracer as tr  # noqa: E402
 from gravit_tpu_torch.render import volume_tracer as vt  # noqa: E402
 from gravit_tpu_torch.examples import simple_app as api_simple_app  # noqa: E402,E501
+from gravit_tpu_torch.examples.simple_app import (CONE_FACES,  # noqa: E402
+                                               CONE_VERTS, CUBE_FACES,
+                                               CUBE_VERTS)
 from gravit_tpu_torch.render.renderer import (Renderer,  # noqa: E402
                                               render_surface, render_volume)
 from gravit_tpu_torch.render.scene_build import Instance, build_scene  # noqa: E402
@@ -186,7 +217,7 @@ from gravit_tpu_torch.scene.camera import PerspectiveCamera  # noqa: E402
 from gravit_tpu_torch.scene.light import area_light, point_light  # noqa: E402
 from gravit_tpu_torch.scene.material import Material  # noqa: E402
 from gravit_tpu_torch.scene.mesh import Mesh  # noqa: E402
-from gravit_tpu_torch.scene.volume import Volume, wavelet_volume  # noqa: E402
+from gravit_tpu_torch.scene.volume import wavelet_volume  # noqa: E402
 
 GOLDEN = ROOT / "tests" / "data" / "torch_port_golden.npz"
 VOLUME_GOLDEN = ROOT / "tests" / "data" / "torch_port_volume_golden.npz"
@@ -278,27 +309,6 @@ def make_scene(seed: int = 0, bands: int = FLAGSHIP_BANDS, width: int = 512,
         camera=camera)
 
 
-# gvtSimple's embedded cone and cube (apps/render/SimpleApp.cpp:83-162),
-# 1-based faces
-CONE_VERTS = [
-    0.5, 0.0, 0.0, -0.5, 0.5, 0.0, -0.5, 0.25, 0.433013, -0.5, -0.25,
-    0.43013, -0.5, -0.5, 0.0, -0.5, -0.25, -0.433013, -0.5, 0.25, -0.433013,
-]
-CONE_FACES = [1, 2, 3, 1, 3, 4, 1, 4, 5, 1, 5, 6, 1, 6, 7, 1, 7, 2]
-CUBE_VERTS = [
-    -0.5, -0.5, 0.5, 0.5, -0.5, 0.5, 0.5, 0.5, 0.5, -0.5, 0.5, 0.5,
-    -0.5, -0.5, -0.5, 0.5, -0.5, -0.5, 0.5, 0.5, -0.5, -0.5, 0.5, -0.5,
-    0.5, 0.5, 0.5, -0.5, 0.5, 0.5, 0.5, 0.5, -0.5, -0.5, 0.5, -0.5,
-    -0.5, -0.5, 0.5, 0.5, -0.5, 0.5, -0.5, -0.5, -0.5, 0.5, -0.5, -0.5,
-    0.5, -0.5, 0.5, 0.5, 0.5, 0.5, 0.5, -0.5, -0.5, 0.5, 0.5, -0.5,
-    -0.5, -0.5, 0.5, -0.5, 0.5, 0.5, -0.5, -0.5, -0.5, -0.5, 0.5, -0.5,
-]
-CUBE_FACES = [
-    1, 2, 3, 1, 3, 4, 17, 19, 20, 17, 20, 18, 6, 5, 8, 6, 8, 7,
-    23, 21, 22, 23, 22, 24, 10, 9, 11, 10, 11, 12, 13, 15, 16, 13, 16, 14,
-]
-
-
 def cone_mesh():
     return compiled_mesh(np.reshape(CONE_VERTS, (-1, 3)),
                          np.reshape(CONE_FACES, (-1, 3)) - 1,
@@ -313,22 +323,8 @@ def cube_mesh():
 
 def simple_app(width: int = 512, height: int = 512,
                max_depth: int = 1) -> SceneSpec:
-    """The reference's gvtSimple (SimpleApp.cpp:164-186): a 5x5 grid of
-    alternating cones and cubes scaled by 0.4 at 0.5 spacing, one point
-    light, the camera of tests/scenes.py::simple_scene (golden jitter)."""
-    instances = []
-    for k, (i, j) in enumerate((i, j) for i in range(-2, 3)
-                               for j in range(-2, 3)):
-        instances.append(Instance(mesh_id=k % 2, m=mat4_translate_scale(
-            (0.0, i * 0.5, j * 0.5), (0.4, 0.4, 0.4))))
-    camera = PerspectiveCamera(
-        eye=(4.0, 0.0, 0.0), focus=(0.0, 0.0, 0.0), up=(0.0, 1.0, 0.0),
-        fov=float(45.0 * np.pi / 180.0), film_width=width,
-        film_height=height, samples=1, max_depth=max_depth,
-        jitter_window=0.5, jitter_mode="golden")
-    return SceneSpec(meshes=[cone_mesh(), cube_mesh()], instances=instances,
-                     lights=[point_light((1.0, 0.0, -1.0), (1.0, 1.0, 1.0))],
-                     camera=camera)
+    """The reference's gvtSimple (dryrun.simple_app) at 512^2 by default."""
+    return SceneSpec(*dryrun.simple_app(width, height, max_depth))
 
 
 def cube_row(lights: list, film: int = 32, n_cubes: int = 5,
@@ -395,25 +391,6 @@ class VolumeSpec:
     volumes: list
     instances: list
     camera: PerspectiveCamera
-
-
-def bricked_wavelet(n: int, parts: int = 2) -> list:
-    """The wavelet split along x into `parts` bricks of n/parts + 1 planes,
-    neighbours sharing one sample plane; the last brick is padded to the
-    others' shape by repeating its last plane (the two-brick scene of the
-    reference's volume-domain tests at parts=2)."""
-    full = wavelet_volume(n)
-    s, w = full.samples, n // parts
-    ones = np.ones(3, np.float32)
-    out = []
-    for i in range(parts):
-        brick = s[:, :, i * w:i * w + w + 1]
-        if brick.shape[2] < w + 1:
-            brick = np.concatenate([brick, s[:, :, -1:]], axis=2)
-        out.append(Volume(samples=brick.copy(),
-                          origin=np.array([i * w, 0, 0], np.float32),
-                          spacing=ones, tf=full.tf))
-    return out
 
 
 VOLUME_KINDS = ("plain", "iso", "amr", "slice", "bricks")
@@ -2502,6 +2479,454 @@ def volume_domain_phases(dev, card: str, film: int = 512, small: int = 64,
 
 
 # ---------------------------------------------------------------------------
+# slice E: training
+
+TRAIN_ROUNDS = 4
+# the card's gradient against the CPU's, relative in the 2-norm per leaf:
+# the two round the same operations alike but for the accumulation order
+# of the scatter-adds (atomics on the card) and the transcendentals' last
+# ulp, and a grazing ray's hit can go the other way (measured at most
+# 4.0e-6, kd, on an H100 at 512^2)
+GRAD_CPU_TOL = 1e-4
+# the sharded step's gradient against the single-device one
+SHARD_TOL = 1e-5
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """|a - b| / |b| in the 2-norm, in float64, on the host."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b))
+
+
+def train_fixture(dev, film: int):
+    """SimpleApp at film^2 (the scene of tests/test_gradients.py, full
+    width), its camera wavefront, a uniform random target from a seed."""
+    spec = simple_app(film, film)
+    scene = build_scene(spec.meshes, spec.instances, spec.lights, device=dev)
+    arena = make_arena(spec.camera.generate_rays(dev), scene.num_lights)
+    target = torch.as_tensor(np.random.default_rng(3).uniform(
+        size=(film * film, 4)).astype(np.float32), device=dev)
+    return scene, arena, target
+
+
+def loss_and_grads(scene, arena, target, film: int) -> tuple:
+    """(loss, gradients) of train.loss_fn at the scene's own params,
+    rounds TRAIN_ROUNDS."""
+    p = train.params_from_scene(scene)
+    loss = train.loss_fn(p, scene, arena, target, film, film, TRAIN_ROUNDS)
+    loss.backward()
+    return float(loss.detach()), [x.grad for x in p]
+
+
+def directional_fd(f, p: list, dps: list, eps: float) -> list:
+    """[(autograd's derivative of f at p along dp, central differences)
+    for each dp in dps], from one gradient."""
+    q = [x.detach().clone().requires_grad_(True) for x in p]
+    g = torch.autograd.grad(f(q), q, allow_unused=True)
+    out = []
+    for dp in dps:
+        analytic = sum(float((ga * da).sum()) for ga, da in zip(g, dp)
+                       if ga is not None)
+        with torch.no_grad():
+            fd = (float(f([x + eps * d for x, d in zip(p, dp)]))
+                  - float(f([x - eps * d for x, d in zip(p, dp)])))
+        out.append((analytic, fd / (2 * eps)))
+    return out
+
+
+def measured(fn) -> tuple:
+    """(fn(), {CUDA-event ms, peak MiB, host syncs}) of one call."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out, stats = observe_frame(fn)
+    stop.record()
+    torch.cuda.synchronize()
+    return out, dict(ms=start.elapsed_time(stop),
+                     peak_mb=torch.cuda.max_memory_allocated() / 2**20,
+                     host_syncs=stats["host_syncs"])
+
+
+def fd_ok(analytic: float, fd: float, rtol: float, atol: float = 1e-6):
+    return (np.isfinite(analytic) and np.isfinite(fd)
+            and abs(analytic - fd) <= atol + rtol * abs(fd))
+
+
+def kernel_counts() -> dict:
+    return {**traversal_counts(), **slice_counts()}
+
+
+def reset_kernel_counts() -> None:
+    bt.reset_launch_counts()
+    sm.reset_launch_counts()
+
+
+def split_step(step_parts, reps: int = 3) -> dict:
+    """Mean CUDA-event ms of a train step's three parts over `reps` steps
+    (after one untimed step): forward (the loss), backward, optimiser.
+    `step_parts(ev)` records ev[0..3] around them."""
+    step_parts()
+    totals = np.zeros(3)
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        step_parts(ev)
+        torch.cuda.synchronize()
+        totals += [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    return dict(zip(("forward_ms", "backward_ms", "optimizer_ms"),
+                    (totals / reps).tolist()))
+
+
+def step_record(step, p, opt, scene, arena, target) -> dict:
+    """What one call of a train step costs on the card: CUDA-event ms per
+    step over 3, and of one more its host clock, host syncs and peak
+    memory (measured), and torch.profiler's operator count, launches and
+    busy device time."""
+    def run():
+        return step(p, opt, scene, arena, target)
+
+    run()
+    ms = cuda_ms(run, reps=3, warmup=0)
+    t0 = time.perf_counter()
+    _, one = measured(run)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    prof = host_counts(run, reps=1)
+    return dict(ms=ms, host_ms=host_ms, host_syncs=one["host_syncs"],
+                peak_mb=one["peak_mb"], aten_ops=prof["aten_ops"],
+                cuda_launches=prof["kernel_launches"],
+                device_ms=prof["device_ms"],
+                idle_share=(None if prof["device_ms"] is None
+                            else 1.0 - prof["device_ms"] / ms),
+                top_kernels=prof["top_kernels"])
+
+
+def train_simple_phase(dev, card: str, film: int = 512) -> dict:
+    """train_simple: SimpleApp at film^2, 4 rounds, brute intersection (no
+    TPU kernel lies on the training path). One step's loss and gradient on
+    the card against the same on the CPU; the directional finite
+    difference along kd (test_gradients.py: eps 3e-3, rtol 0.15); the
+    default step's time split into forward, backward and optimiser, peak
+    memory, syncs and launches; 25 Adam steps at lr 5e-2 from light_color
+    x 0.3 towards the scene's own frame must bring the loss below 0.66 x
+    its start. Returns the card's loss and gradients, and the fixture."""
+    scene, arena, target = train_fixture(dev, film)
+    reset_kernel_counts()
+    (loss_c, g_c), grad_cost = measured(
+        lambda: loss_and_grads(scene, arena, target, film))
+    t0 = time.perf_counter()
+    cpu = train_fixture("cpu", film)
+    loss_h, g_h = loss_and_grads(*cpu, film)
+    cpu_s = time.perf_counter() - t0
+    del cpu
+    vs_cpu = {n: rel_err(a, b) for n, a, b in
+              zip(train.TrainParams._fields, g_c, g_h)}
+    loss_rel = abs(loss_c - loss_h) / abs(loss_h)
+
+    p0 = train.params_from_scene(scene)
+    dp = [torch.zeros_like(x) for x in p0]
+    dp[1] = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        tuple(p0.kd.shape)).astype(np.float32), device=dev)
+
+    def f(q):
+        return train.loss_fn(train.TrainParams(*q), scene, arena, target,
+                             film, film, TRAIN_ROUNDS)
+
+    (analytic, fd), = directional_fd(f, list(p0), [dp], 3e-3)
+
+    step, optimizer = train.make_train_step(rounds=TRAIN_ROUNDS,
+                                            width=film, height=film)
+    p = train.params_from_scene(scene)
+    opt = optimizer(list(p))
+
+    def parts(ev=None):
+        rec = (lambda i: ev[i].record()) if ev else (lambda i: None)
+        opt.zero_grad(set_to_none=True)
+        rec(0)
+        loss = train.loss_fn(p, scene, arena, target, film, film,
+                             TRAIN_ROUNDS)
+        rec(1)
+        loss.backward()
+        rec(2)
+        opt.step()
+        rec(3)
+
+    split = split_step(parts)
+    rec = step_record(step, p, opt, scene, arena, target)
+
+    with torch.no_grad():
+        own = train.render_with_params(scene, train.params_from_scene(scene),
+                                       arena, film, film, TRAIN_ROUNDS)
+    q = train.params_from_scene(scene)
+    q = q._replace(light_color=(q.light_color.detach() * 0.3)
+                   .requires_grad_(True))
+    step5, opt5 = train.make_train_step(train.adam(5e-2), TRAIN_ROUNDS,
+                                        film, film)
+    o = opt5(list(q))
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(25):
+        q, o, loss = step5(q, o, scene, arena, own)
+        losses.append(float(loss))
+    fall_s = time.perf_counter() - t0
+    launches = kernel_counts()
+    ok = (all(v <= GRAD_CPU_TOL for v in vs_cpu.values())
+          and loss_rel <= 1e-5 and fd_ok(analytic, fd, 0.15)
+          and abs(analytic) > 1e-8 and losses[-1] < 0.66 * losses[0]
+          and all(np.isfinite(losses)) and not any(launches.values()))
+    log("train_simple", card=card, film=[film, film], rounds=TRAIN_ROUNDS,
+        triangles=scene.num_triangles, arena=arena.capacity,
+        loss=loss_c, loss_cpu=loss_h, loss_rel_vs_cpu=loss_rel,
+        grad_rel_vs_cpu=vs_cpu, tolerance=dict(grad_rel=GRAD_CPU_TOL,
+                                                loss_rel=1e-5),
+        first_grad=grad_cost, cpu_grad_s=cpu_s,
+        fd_kd=dict(analytic=analytic, fd=fd, eps=3e-3, rtol=0.15),
+        step=dict(**split, **rec), losses=[losses[0], losses[-1]],
+        loss_ratio=losses[-1] / losses[0], adam_25_steps_s=fall_s,
+        port_kernel_launches=launches, ok=ok)
+    if not ok:
+        raise SystemExit("train_simple failed")
+    return dict(loss=loss_c, grads=g_c, fixture=(scene, arena, target))
+
+
+def train_sharded_phase(dev, card: str, single: dict,
+                        film: int = 512) -> None:
+    """train_sharded: the data-parallel step over a LocalGroup(4) on the
+    card, from the same params and target as train_simple's gradient: the
+    loss equal to the single-device loss (1e-6 relative) and each
+    gradient within SHARD_TOL of it, not 4 x it; its time, peak memory,
+    syncs. Then a one-rank NCCL DistGroup step against LocalGroup(1), both
+    with torch's deterministic algorithms (the card's scatter-adds
+    otherwise accumulate in no fixed order): bit-equal loss, gradients and
+    updated params."""
+    scene, arena, target = single["fixture"]
+    step, optimizer = train.make_sharded_train_step(
+        LocalGroup(4, dev), rounds=TRAIN_ROUNDS, width=film, height=film)
+    p = train.params_from_scene(scene)
+    opt = optimizer(list(p))
+    reset_kernel_counts()
+    _, _, loss = step(p, opt, scene, arena, target)
+    grads = [x.grad.detach().clone() for x in p]
+    vs_single = {n: rel_err(a, b) for n, a, b in
+                 zip(train.TrainParams._fields, grads, single["grads"])}
+    loss_rel = abs(float(loss) - single["loss"]) / abs(single["loss"])
+    rec = step_record(step, p, opt, scene, arena, target)
+    launches = kernel_counts()
+
+    def world1(group) -> tuple:
+        st, mk = train.make_sharded_train_step(
+            group, rounds=TRAIN_ROUNDS, width=film, height=film)
+        q = train.params_from_scene(scene)
+        q, o, ls = st(q, mk(list(q)), scene, arena, target)
+        return ls, [x.grad for x in q], list(q)
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        local = world1(LocalGroup(1, dev))
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        parallel.initialize(f"localhost:{port}", 1, 0, backend="nccl")
+        try:
+            nccl = world1(parallel.DistGroup(None, dev))
+        finally:
+            parallel.shutdown()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    bit_equal = bool(torch.equal(local[0], nccl[0])) and all(
+        torch.equal(a, b) for a, b in zip(local[1] + local[2],
+                                          nccl[1] + nccl[2]))
+    ok = (loss_rel <= 1e-6 and all(v <= SHARD_TOL
+                                   for v in vs_single.values())
+          and bit_equal and not any(launches.values()))
+    log("train_sharded", card=card, film=[film, film], members=4,
+        rounds=TRAIN_ROUNDS, loss=float(loss), loss_single=single["loss"],
+        loss_equal=float(loss) == single["loss"], loss_rel=loss_rel,
+        grad_rel_vs_single=vs_single, tolerance=dict(grad_rel=SHARD_TOL,
+                                                     loss_rel=1e-6),
+        step=rec, nccl_world1_bit_equal_local1=bit_equal,
+        port_kernel_launches=launches, ok=ok)
+    if not ok:
+        raise SystemExit("train_sharded failed")
+
+
+def train_volume_phase(dev, card: str, film: int = 512) -> None:
+    """train_volume: V64 (make_volume_scene("plain"), the 64^3 wavelet
+    brick at film^2). The image sum's gradient wrt the samples through
+    trace_volume(unroll=True, max_rounds=4) (the gather march), and wrt
+    the samples and the colour LUT through slice_march_reference (the
+    slice engine's plain version), each against central differences
+    along a random direction (eps 1e-2, rtol 0.1, test_gradients.py);
+    each check's cost (one gradient and two forwards a direction: CUDA-event
+    ms, peak memory, host syncs). The image sums are reduced in
+    float64: at 512^2 a float32 sum's rounding is larger than the
+    differences the central difference takes."""
+    spec = make_volume_scene("plain", 64, film, film)
+    scene = build_volume_scene(spec.volumes, spec.instances, device=dev)
+    rays = spec.camera.generate_rays(dev, volume=True)
+    arena = make_arena(rays, 0)
+    s0 = scene.vol_samples[0].detach()
+    rng = np.random.default_rng(0)
+    out, cost = {}, {}
+    reset_kernel_counts()
+
+    def march(samples):
+        fb = vt.trace_volume(dataclasses.replace(scene, vol_samples=(
+            samples,)), arena, film, film, max_rounds=4, unroll=True)
+        return fb[:, :3].double().sum()
+
+    d = torch.as_tensor(rng.standard_normal(tuple(s0.shape)).astype(
+        np.float32), device=dev)
+    (out["march"],), cost["march"] = measured(lambda: directional_fd(
+        lambda q: march(q[0]), [s0], [[d]], 1e-2))
+
+    vol = spec.volumes[0]
+    o, dirs = rays.origin, rays.direction
+    n = o.shape[0]
+    axis, flip = sm.choose_slice_axis(dirs.mean(0).cpu().numpy())
+    meta = dict(axis=axis, flip=flip, step=float(vol.step_size()),
+                base_step=float(vol.spacing.min()),
+                low=float(vol.tf.low), high=float(vol.tf.high),
+                origin=tuple(float(x) for x in vol.origin),
+                spacing=tuple(float(x) for x in vol.spacing))
+    cl0 = torch.as_tensor(vol.tf.color_lut, device=dev)
+    ol = torch.as_tensor(vol.tf.opacity_lut, device=dev)
+    active = torch.ones((n,), dtype=torch.bool, device=dev)
+    zc, zw = torch.zeros((n, 3), device=dev), torch.zeros((n,), device=dev)
+
+    def slice_sum(q):
+        c, w, _ = sm.slice_march_reference(o, dirs, active, zc, zw, q[0],
+                                           q[1], ol, **meta)
+        return (c * w[:, None]).double().sum()
+
+    dS = torch.as_tensor(rng.standard_normal(tuple(s0.shape)).astype(
+        np.float32), device=dev)
+    dC = torch.as_tensor(rng.standard_normal(tuple(cl0.shape)).astype(
+        np.float32), device=dev)
+    (out["slice_samples"], out["slice_lut"]), cost["slice"] = measured(
+        lambda: directional_fd(slice_sum, [s0, cl0],
+                               [[dS, torch.zeros_like(cl0)],
+                                [torch.zeros_like(s0), dC]], 1e-2))
+    launches = kernel_counts()
+    checks = {k: dict(analytic=out[k][0], fd=out[k][1],
+                      ok=bool(fd_ok(*out[k], rtol=0.1, atol=0.0)
+                              and abs(out[k][0]) > 0))
+              for k in ("march", "slice_samples", "slice_lut")}
+    ok = all(c["ok"] for c in checks.values()) and not any(launches.values())
+    log("train_volume", card=card, film=[film, film], brick=list(s0.shape),
+        rounds=4, fd=checks, eps=1e-2, rtol=0.1, card_cost=cost,
+        port_kernel_launches=launches, ok=ok)
+    if not ok:
+        raise SystemExit("train_volume failed")
+
+
+def checkpoint_phase(dev, card: str, fixture: tuple, film: int = 512):
+    """checkpoint: two Adam steps on the card, save (from card tensors),
+    restore onto the card into a fresh optimiser; the third step of the
+    uninterrupted and of the resumed run, both with torch's deterministic
+    algorithms, must give bit-equal params, count and moments."""
+    scene, arena, target = fixture
+    step, optimizer = train.make_train_step(train.adam(5e-2), TRAIN_ROUNDS,
+                                            film, film)
+    p = train.params_from_scene(scene)
+    opt = optimizer(list(p))
+    for _ in range(2):
+        p, opt, _ = step(p, opt, scene, arena, target)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "train_state"
+        t0 = time.perf_counter()
+        checkpoint.save(path, p, opt, step=2)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        size = path.with_suffix(".npz").stat().st_size
+        t0 = time.perf_counter()
+        q, st, k = checkpoint.restore(path, device=dev)
+        restore_ms = (time.perf_counter() - t0) * 1e3
+    on_card = all(x.device.type == torch.device(dev).type
+                  for x in list(q) + list(st.mu) + list(st.nu))
+    resumed = train.load_adam_state(optimizer(list(q)), q, st)
+    torch.use_deterministic_algorithms(True)
+    try:
+        p, opt, loss_p = step(p, opt, scene, arena, target)
+        (q, resumed, loss_q), cost = measured(
+            lambda: step(q, resumed, scene, arena, target))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    a, b = train.adam_state(opt, p), train.adam_state(resumed, q)
+    equal = (bool(torch.equal(loss_p, loss_q)) and int(a.count)
+             == int(b.count) == k + 1 and all(
+                 torch.equal(x, y) for x, y in zip(
+                     list(p) + list(a.mu) + list(a.nu),
+                     list(q) + list(b.mu) + list(b.nu))))
+    ok = equal and on_card
+    log("checkpoint", card=card, film=[film, film], saved_step=k,
+        file_bytes=size, save_ms=save_ms, restore_ms=restore_ms,
+        restored_on_card=on_card, next_step_bit_equal=equal,
+        resumed_step_deterministic=cost, ok=ok)
+    if not ok:
+        raise SystemExit("checkpoint: the resumed step differs")
+
+
+DRYRUN_GOLDEN = ROOT / "tests" / "data" / "torch_port_train_golden.npz"
+
+
+def dryrun_phase(dev, card: str) -> dict:
+    """dryrun: dryrun_multichip(4) on the card (a (2, 2) layout of
+    LocalGroups at 16^2: domain-scheduled, accel, replica-routed and
+    volume-domain forwards, one sharded train step). The accel and
+    replica-routed frames are held against the brute domain frame (max |d|
+    <= 1e-5, the bound of the scheduler frames: the deposit's index_add_
+    sums in any order on the card), every frame sum within 1e-5 relative
+    of the JAX dry run's (the golden of tests/test_torch_dryrun.py) and the
+    loss within 1e-6; a live K1 and K2 launch of an accel member's round
+    is held against the plain versions. Returns the K1/K2 launches of the
+    main run and the holds' errors."""
+    reset_kernel_counts()
+    (out, frames), cost = measured(
+        lambda: dryrun.dryrun_multichip(4, device=dev, return_frames=True))
+    counts = traversal_counts()
+    brute = frames["domain_forward"]
+    vs_brute = {name: float((frames[name] - brute).abs().max())
+                for name in ("accel_domain_forward", "replica_routed_forward")}
+    bit_equal = {name: bool(torch.equal(frames[name], brute))
+                 for name in vs_brute}
+    with np.load(DRYRUN_GOLDEN) as gold:
+        ref = {key: float(gold[f"dryrun_{key}"]) for key in (
+            "domain_forward", "accel_domain_forward",
+            "replica_routed_forward", "volume_domain_forward", "train_loss")}
+    vs_jax = {key: out[key] - r for key, r in ref.items()}
+    ok = (np.isfinite(out["train_loss"]) and counts["closest"] > 0
+          and counts["any_hit"] > 0
+          and all(d <= 1e-5 for d in vs_brute.values())
+          and all(abs(d) <= 1e-5 * abs(ref[k]) for k, d in vs_jax.items()
+                  if k != "train_loss")
+          and abs(vs_jax["train_loss"]) <= 1e-6)
+    log("dryrun", card=card, **cost, launches=counts, **out,
+        accel_vs_brute_max_abs=vs_brute, bit_equal_to_brute=bit_equal,
+        minus_jax_dryrun=vs_jax, ok=ok)
+    if not ok:
+        raise SystemExit("dryrun failed")
+    del frames, brute
+    held = hold_sched_launches(
+        "dryrun_accel", lambda: dryrun.dryrun_multichip(4, device=dev),
+        "trace_round", lambda call, acc: "accel_member" if acc is not None
+        else None,
+        {("accel_member", "closest"):
+             "an accel domain member's round (2 members of a (2, 2) layout)",
+         ("accel_member", "any_hit"): "the same round's shadow blocks"})
+    return dict(counts=counts, held=held)
+
+
+def train_phases(dev, card: str, film: int = 512) -> dict:
+    """Slice E's phases (train_simple, train_sharded, train_volume,
+    checkpoint, dryrun). Returns the dry run's K1/K2 launches and the
+    holds' errors."""
+    single = train_simple_phase(dev, card, film)
+    train_sharded_phase(dev, card, single, film)
+    checkpoint_phase(dev, card, single["fixture"], film)
+    del single
+    train_volume_phase(dev, card, film)
+    return dryrun_phase(dev, card)
 
 
 def main() -> int:
@@ -2742,6 +3167,13 @@ def main() -> int:
             h["max_abs_err"] for label, h in vdom["held"].items()
             if label.startswith(kid)])
     kernel_rows += volume_rows
+    # ---- slice E: training, checkpointing and the dry run ----------------
+    dry = train_phases(dev, card)
+    for row, key in zip(kernel_rows[:2], ("closest", "any_hit")):
+        row["launches"] += dry["counts"][key]
+        row["max_abs_err"] = max([row["max_abs_err"]] + [
+            h["max_abs_err"] for label, h in dry["held"].items()
+            if label.endswith(key)])
     log("done", seconds=time.time() - t_start)
 
     print(json.dumps({"kernels": kernel_rows}))

@@ -19,6 +19,7 @@ from gravit_tpu_torch.accel.instance_bvh import InstanceBVH
 from gravit_tpu_torch.accel.scene_accel import SceneBVH
 from gravit_tpu_torch.core.rays import RayArena
 from gravit_tpu_torch.device import resolve_device
+from gravit_tpu_torch.render import train
 from gravit_tpu_torch.render import volume_scene as vs
 from gravit_tpu_torch.render.scene_build import (STATIC_FIELDS, TENSOR_FIELDS,
                                                  SceneData)
@@ -95,3 +96,23 @@ def volume_scene_from_numpy(arrays: Mapping[str, object], device=None,
     subgrids = tuple(tuple(tuple(tensor(x) for x in sub) for sub in subs)
                      for subs in arrays.get("vol_subgrids", ()))
     return vs.VolumeSceneData(**fields, vol_subgrids=subgrids, **static)
+
+
+def train_state_from_numpy(params, adam_leaves=None, device=None,
+                           optimizer=None):
+    """The JAX package's training state carried across: `params` are
+    TrainParams' four leaves (vertices, kd, light_pos, light_color) as numpy
+    arrays, `adam_leaves` optax Adam's state leaves in flatten order (count,
+    mu's four params, nu's four params; None: a fresh optimiser). Returns
+    (TrainParams of leaf tensors that require grad, a torch.optim.Adam over
+    them primed with those moments). `optimizer` is the torch.optim factory
+    (default train.adam(1e-3), optax.adam(1e-3)'s counterpart)."""
+    device = resolve_device(device)
+    p = train.TrainParams(*(
+        torch.tensor(np.asarray(a, np.float32), device=device)
+        .requires_grad_(True) for a in params))
+    opt = (optimizer or train.adam(1e-3))(list(p))
+    if adam_leaves is not None:
+        train.load_adam_state(opt, p, train.adam_state_from_leaves(
+            adam_leaves, device))
+    return p, opt

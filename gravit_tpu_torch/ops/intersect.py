@@ -49,7 +49,10 @@ def intersect_closest(o, d, ray_mesh, active, tri_v0, tri_e1, tri_e2,
 
     Semantics match Embree tnear=RAY_EPSILON, tfar=FLT_MAX
     (EmbreeMeshAdapter.cpp:277-278). Within a tile the first index wins a
-    tie (argmin); across tiles a later tile must be strictly closer.
+    tie (argmin); across tiles a later tile must be strictly closer. The
+    winner's t, u, v are read with `gather`, whose backward is a
+    scatter-add (advanced indexing's backward sorts its indices: 50 ms a
+    call at 655,360 x 18 on an H100).
     """
     n = o.shape[0]
     dev = o.device
@@ -58,7 +61,6 @@ def intersect_closest(o, d, ray_mesh, active, tri_v0, tri_e1, tri_e2,
     best_u = torch.zeros((n,), dtype=torch.float32, device=dev)
     best_v = torch.zeros((n,), dtype=torch.float32, device=dev)
     live = active & (ray_mesh >= 0)
-    rows = torch.arange(n, device=dev)
     for s in range(0, tri_v0.shape[0], tile):
         sl = slice(s, s + tile)
         hit, t, u, v = moller_trumbore(
@@ -66,13 +68,13 @@ def intersect_closest(o, d, ray_mesh, active, tri_v0, tri_e1, tri_e2,
             tri_e2[None, sl], RAY_EPSILON, FLT_MAX)
         hit = hit & (tri_mesh[None, sl] == ray_mesh[:, None]) & live[:, None]
         t = torch.where(hit, t, FLT_MAX)
-        j = torch.argmin(t, dim=1)
-        t_j = t[rows, j]
+        j = torch.argmin(t, dim=1, keepdim=True)
+        t_j = t.gather(1, j)[:, 0]
         closer = t_j < best_t
         best_t = torch.where(closer, t_j, best_t)
-        best_p = torch.where(closer, (j + s).to(torch.int32), best_p)
-        best_u = torch.where(closer, u[rows, j], best_u)
-        best_v = torch.where(closer, v[rows, j], best_v)
+        best_p = torch.where(closer, (j[:, 0] + s).to(torch.int32), best_p)
+        best_u = torch.where(closer, u.gather(1, j)[:, 0], best_u)
+        best_v = torch.where(closer, v.gather(1, j)[:, 0], best_v)
     return Hit(best_t, best_p, best_u, best_v)
 
 

@@ -207,3 +207,40 @@ def build_scene(meshes: Sequence[CompiledMesh],
         has_embree_materials=bool(np.any(mat >= 3)),
         has_specular=bool(np.any((mat == 1) | (mat == 2))),
     )
+
+
+def _unit_rows(x: torch.Tensor) -> torch.Tensor:
+    """x / max(|x|, 1e-30) row by row, |x| = sqrt of the left-to-right
+    dot3 sum (the JAX package's jnp.linalg.norm order). At a zero row the
+    backward is 0: JAX's sqrt(sum(x*x)) gives NaN there (0 * inf), as
+    torch.linalg.norm does not. No fixture has a degenerate triangle."""
+    n2 = math3d.dot3(x, x)
+    pos = n2 > 0.0
+    n = torch.where(pos, torch.sqrt(torch.where(pos, n2, 1.0)), 0.0)
+    return x / torch.clamp(n, min=1e-30)[:, None]
+
+
+def refresh_geometry(scene: SceneData, vertices: torch.Tensor) -> SceneData:
+    """Re-derive the triangle soup from a (possibly updated) vertex buffer
+    (JAX render/scene_build.py:238-260), out of place, so that autograd
+    carries gradients of rendered pixels to `vertices` through (v0, e1,
+    e2), the geometric normals and the generateNormals()-style
+    area-weighted vertex normals (Mesh.cpp:116-155).
+
+    The vertex-normal sums are `index_add`: on the card repeated indices
+    are summed by atomics in no fixed order, so their last bit (and a
+    vertex gradient's) can vary from run to run; hold card results by a
+    bound, not bit-equality.
+    """
+    f = scene.faces.to(torch.int64)
+    v0 = vertices[f[:, 0]]
+    e1 = vertices[f[:, 1]] - v0
+    e2 = vertices[f[:, 2]] - v0
+    fn = _unit_rows(math3d.cross3(e1, e2))
+    vn = torch.zeros_like(vertices)
+    for k in range(3):
+        vn = vn.index_add(0, f[:, k], fn)
+    vn = _unit_rows(vn)
+    tri_ns = torch.stack([vn[f[:, 0]], vn[f[:, 1]], vn[f[:, 2]]], dim=1)
+    return dataclasses.replace(scene, vertices=vertices, tri_v0=v0,
+                               tri_e1=e1, tri_e2=e2, tri_ng=fn, tri_ns=tri_ns)

@@ -434,8 +434,12 @@ def _process_surface_hits(scene: SceneData, arena: RayArena, hit: Hit,
     t_hit = torch.where(mask, hit.t, 1.0)
     _, _, normi = _gather_inst(scene, arena.inst)
 
+    # index_select's backward is an index_add; advanced indexing's sorts
+    # every lane's row index (431 ms a round at 655,360 lanes into 18 rows
+    # on an H100, the whole of a training step's backward)
     (ns, vcol, kd_face, ks, tri_e1, tri_e2, alpha, mat_type_face, has_vc1,
-     embree_params) = _unpack_shade_row(scene, _pack_shade_table(scene)[prim])
+     embree_params) = _unpack_shade_row(
+        scene, torch.index_select(_pack_shade_table(scene), 0, prim))
 
     # interpolated shading normal a*u + b*v + c*(1-u-v), corners (1, 2, 0)
     # (EmbreeMeshAdapter.cpp:510-521)
@@ -596,7 +600,8 @@ def _append_rays(arena: RayArena, spawn: torch.Tensor,
     row_of_rank = _scatter_drop(m, m, torch.where(valid, vrank, m), rows)
     src_row = torch.where(inact, row_of_rank[rank_top.clamp(0, m - 1)], m)
     written = src_row < m
-    buf = spawn[src_row.clamp(0, m - 1)]
+    # index_select: a cheap backward (see _process_surface_hits)
+    buf = torch.index_select(spawn, 0, src_row.clamp(0, m - 1))
     w3 = written[:, None]
     inst_row = buf[:, 14].to(torch.int32)
     none = torch.full_like(inst_row, -1)

@@ -164,11 +164,12 @@ def jax_volumes(volumes) -> list:
 def bricked_wavelet(n: int = 32):
     """The wavelet of n^3 samples split into two x-bricks of n x n x
     (n/2 + 1), the right one padded by its last plane
-    (tests/test_volume_domain.py::_bricked_wavelet, chip_smoke's
-    bricked_wavelet): (port volumes, the same as the JAX package's)."""
-    import chip_smoke
+    (tests/test_volume_domain.py::_bricked_wavelet, the port's
+    dryrun.bricked_wavelet): (port volumes, the same as the JAX
+    package's)."""
+    from gravit_tpu_torch import dryrun
 
-    port = chip_smoke.bricked_wavelet(n)
+    port = dryrun.bricked_wavelet(n)
     return port, jax_volumes(port)
 
 
