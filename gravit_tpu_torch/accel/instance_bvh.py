@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from gravit_tpu_torch.core.rays import FLT_MAX, RAY_EPSILON
+from gravit_tpu_torch.core.timing import span
 from gravit_tpu_torch.device import resolve_device
 
 SAH_BINS = 16
@@ -152,6 +153,13 @@ def _step(bvh: InstanceBVH, ptr, best_t, best_i, origin, inv_dir, t_max,
     return torch.where(ptr < 0, -1, nxt), best_t, best_i
 
 
+def _any_live(ptr: torch.Tensor) -> bool:
+    """Whether a pointer still walks: the walk waits for the card here."""
+    live = (ptr >= 0).any()
+    with span("tracer.sync"):
+        return live.item()
+
+
 def closest_instance(bvh: InstanceBVH, origin: torch.Tensor,
                      inv_dir: torch.Tensor, t_max: torch.Tensor,
                      exclude: torch.Tensor, active: torch.Tensor,
@@ -175,7 +183,7 @@ def closest_instance(bvh: InstanceBVH, origin: torch.Tensor,
     ptr = torch.where(active, 0, -1).to(torch.int32)
     best_t = torch.full((n,), FLT_MAX, dtype=torch.float32, device=dev)
     best_i = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    while bool((ptr >= 0).any()):
+    while _any_live(ptr):
         for _ in range(check_every):
             ptr, best_t, best_i = _step(bvh, ptr, best_t, best_i, origin,
                                         inv_dir, t_max, exclude)

@@ -30,6 +30,7 @@ import numpy as np
 
 from gravit_tpu_torch.accel.scene_accel import build_scene_bvh
 from gravit_tpu_torch.core.context import RenderContext
+from gravit_tpu_torch.core.timing import span, spanned
 from gravit_tpu_torch.device import resolve_device
 from gravit_tpu_torch.parallel import global_mesh
 from gravit_tpu_torch.render.scene_build import Instance, build_scene
@@ -80,10 +81,12 @@ def render_surface(meshes: Sequence[CompiledMesh],
     if camera.max_depth < 1:
         raise NotImplementedError(
             f"max_depth {camera.max_depth}: a frame needs max_depth >= 1")
-    scene = build_scene(meshes, instances, lights, device=device)
+    with span("facade.build_scene"):
+        scene = build_scene(meshes, instances, lights, device=device)
     accel = None
     if sum(m.num_triangles for m in meshes) >= BVH_MIN_TRIANGLES:
-        accel = build_scene_bvh(meshes, device=device)
+        with span("facade.build_bvh"):
+            accel = build_scene_bvh(meshes, device=device)
     rays = camera.generate_rays(device)
     W, H = camera.film_width, camera.film_height
     if scene.num_instances == 1 and camera.max_depth <= MAX_FAST_DEPTH:
@@ -189,7 +192,8 @@ class Renderer:
         mesh_nodes = [n for n in db.group("Data").children.values()
                       if n.type == "Mesh"]
         name2id = {n.name: i for i, n in enumerate(mesh_nodes)}
-        meshes = [n["ptr"].compile() for n in mesh_nodes]
+        with span("facade.compile_meshes"):
+            meshes = [n["ptr"].compile() for n in mesh_nodes]
         instances = [Instance(mesh_id=name2id[n["meshRef"]], m=n["mat"])
                      for n in db.group("Instances").children.values()]
         return meshes, instances, self._lights(db)
@@ -213,8 +217,10 @@ class Renderer:
 
     # -- rendering --------------------------------------------------------
 
+    @spanned("facade.render")
     def render(self, name: str) -> None:
-        """Build the named Scheduler's camera and scene and trace a frame:
+        """Build the named Scheduler's camera and scene and trace a frame
+        (a `facade.render` span):
           volume, Domain/AsyncDomain schedule, more than one member, one
             brick shape, more than one instance   trace_volume_domain
           volume, otherwise                       render_volume

@@ -20,11 +20,17 @@ Loops whose length depends on the data (the hop loops, the wavefront
 rounds, the instance-tree walk) are host loops that read their condition
 from the card once per round. 3x3 transforms are written as
 broadcast-multiply + left-to-right sums, never as matmuls.
+
+Spans (core/timing.py): a tracer call is a `tracer.frame`; inside it
+`tracer.shuffle`, `tracer.intersect` (every hit query), `tracer.shade`,
+`tracer.instance_search` (the next-instance query, the tree walk
+included), `tracer.deposit` (deposits and the clamp), `tracer.round` (a
+looped round), and `tracer.sync` around every read of the card's
+answer on the host.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 
@@ -35,6 +41,7 @@ from gravit_tpu_torch.accel.instance_bvh import closest_instance
 from gravit_tpu_torch.core.math3d import cross3, dot3
 from gravit_tpu_torch.core.rays import FLT_MAX, RayArena, RayType
 from gravit_tpu_torch.core.rng import hash_uniform, hash_uniform2, round_extra
+from gravit_tpu_torch.core.timing import span, spanned
 from gravit_tpu_torch.ops.bvh_traverse import PACKET, bvh_intersect
 from gravit_tpu_torch.ops.intersect import Hit, intersect_closest
 from gravit_tpu_torch.render.scene_build import SceneData
@@ -57,6 +64,12 @@ def _safe_norm(x: torch.Tensor) -> torch.Tensor:
 
 def _choose_tile(num_tris: int) -> int:
     return max(128, min(256, -(-num_tris // 128) * 128))
+
+
+def _read(x: torch.Tensor):
+    """x's value on the host: the tracer waits for the card here."""
+    with span("tracer.sync"):
+        return x.item()
 
 
 def _gather_inst(scene: SceneData, inst: torch.Tensor):
@@ -91,6 +104,7 @@ def to_object_space(scene: SceneData, arena: RayArena):
     return o, d, mesh_id
 
 
+@spanned("tracer.shuffle")
 def shuffle(scene: SceneData, arena: RayArena, fb: torch.Tensor,
             initial: bool = True):
     """Assign each unqueued ray its next instance, or retire it
@@ -108,9 +122,11 @@ def shuffle(scene: SceneData, arena: RayArena, fb: torch.Tensor,
     is_shadow = arena.type == int(RayType.SHADOW)
 
     def deposit_retired(fb, retire):
-        dep = retire & is_shadow & (dot3(arena.color, arena.color) > 0.0)
-        return image_lib.local_add(fb, arena.id, arena.color * arena.w[:, None],
-                                   torch.ones_like(arena.w), dep)
+        with span("tracer.deposit"):
+            dep = retire & is_shadow & (dot3(arena.color, arena.color) > 0.0)
+            return image_lib.local_add(
+                fb, arena.id, arena.color * arena.w[:, None],
+                torch.ones_like(arena.w), dep)
 
     if scene.num_instances == 1 and not initial:
         fb = deposit_retired(fb, pending)
@@ -132,6 +148,7 @@ def shuffle(scene: SceneData, arena: RayArena, fb: torch.Tensor,
                          active=arena.active & ~retire), fb
 
 
+@spanned("tracer.instance_search")
 def _next_instance(scene: SceneData, origin, direction, t_max, prev,
                    pending):
     """BVH::intersect leaf semantics (BVH.h:61-135, `update=true` slab):
@@ -205,6 +222,20 @@ def _merge_hit(best: Hit, sel: torch.Tensor, t, prim, u, v) -> Hit:
     return Hit(t=torch.where(sel, t, best.t),
                prim=torch.where(sel, prim, best.prim),
                u=torch.where(sel, u, best.u), v=torch.where(sel, v, best.v))
+
+
+@spanned("tracer.intersect")
+def _intersect(scene: SceneData, accel, o_obj, d_obj, ray_mesh, queued, tile,
+               is_shadow=None, impl=None) -> Hit:
+    """The hit query of object-space rays: _intersect_bvh given `accel`
+    (any hit for `is_shadow` lanes), else the brute closest hit over
+    triangle tiles of `tile`."""
+    if accel is not None:
+        return _intersect_bvh(scene, accel, o_obj, d_obj, ray_mesh, queued,
+                              is_shadow=is_shadow, impl=impl)
+    return intersect_closest(o_obj, d_obj, ray_mesh, queued, scene.tri_v0,
+                             scene.tri_e1, scene.tri_e2, scene.tri_mesh,
+                             tile=tile)
 
 
 def _intersect_bvh(scene: SceneData, accel, o_obj, d_obj, ray_mesh, queued,
@@ -414,6 +445,7 @@ def _normals_einsum(ns, normi, u_, v_, tri_e1, tri_e2, direction):
     return torch.where(flip[:, None], -n_shade, n_shade)
 
 
+@spanned("tracer.shade")
 def _process_surface_hits(scene: SceneData, arena: RayArena, hit: Hit,
                           mask: torch.Tensor, round_idx,
                           no_bounce: bool = False):
@@ -567,12 +599,8 @@ def _resolve_spawn_occlusion(scene: SceneData, accel, spawn: torch.Tensor,
             o, d = _pad_rows(o, pad), _pad_rows(d, pad)
             ray_mesh, queued = _pad_rows(ray_mesh, pad, -1), _pad_rows(
                 queued, pad, False)
-        hit = _intersect_bvh(scene, accel, o, d, ray_mesh, queued,
-                             is_shadow=torch.ones_like(queued), impl=impl)
-    else:
-        hit = intersect_closest(o, d, ray_mesh, queued, scene.tri_v0,
-                                scene.tri_e1, scene.tri_e2, scene.tri_mesh,
-                                tile=tile)
+    hit = _intersect(scene, accel, o, d, ray_mesh, queued, tile,
+                     is_shadow=torch.ones_like(queued), impl=impl)
     occluded = queued[:m] & (hit.prim[:m] >= 0)
     return torch.cat([spawn[:, :15], (valid & ~occluded).to(
         torch.float32)[:, None]], dim=1)
@@ -624,6 +652,7 @@ def _append_rays(arena: RayArena, spawn: torch.Tensor,
         active=arena.active | written)
 
 
+@spanned("tracer.round")
 def trace_round(scene: SceneData, arena: RayArena, fb: torch.Tensor,
                 round_idx: int, tile: int, accel=None, impl=None):
     """One wavefront round: intersect every queued ray against its own
@@ -633,13 +662,8 @@ def trace_round(scene: SceneData, arena: RayArena, fb: torch.Tensor,
     o_obj, d_obj, ray_mesh = to_object_space(scene, arena)
     queued = arena.active & (arena.inst >= 0) & (ray_mesh >= 0)
     is_shadow = arena.type == int(RayType.SHADOW)
-    if accel is not None:
-        hit = _intersect_bvh(scene, accel, o_obj, d_obj, ray_mesh, queued,
-                             is_shadow=is_shadow, impl=impl)
-    else:
-        hit = intersect_closest(o_obj, d_obj, ray_mesh, queued, scene.tri_v0,
-                                scene.tri_e1, scene.tri_e2, scene.tri_mesh,
-                                tile=tile)
+    hit = _intersect(scene, accel, o_obj, d_obj, ray_mesh, queued, tile,
+                     is_shadow=is_shadow, impl=impl)
     got_hit = queued & (hit.prim >= 0)
     # shadow rays: a hit is occlusion (the ray dies); a miss leaves the
     # instance, as a primary or secondary miss does
@@ -657,6 +681,7 @@ def trace_round(scene: SceneData, arena: RayArena, fb: torch.Tensor,
     return shuffle(scene, arena, fb, initial=False)
 
 
+@spanned("tracer.frame")
 def trace_image(scene: SceneData, arena: RayArena, width: int, height: int,
                 max_rounds: int = 64, unroll: bool = False, accel=None,
                 impl=None) -> torch.Tensor:
@@ -673,7 +698,7 @@ def trace_image(scene: SceneData, arena: RayArena, width: int, height: int,
     tile = _choose_tile(scene.num_triangles)
     arena, fb = shuffle(scene, arena, fb)      # FilterRaysLocally analog
     for r in range(max_rounds):
-        if not unroll and not bool((arena.active & (arena.inst >= 0)).any()):
+        if not unroll and not _read((arena.active & (arena.inst >= 0)).any()):
             break
         arena, fb = trace_round(scene, arena, fb, r, tile, accel=accel,
                                 impl=impl)
@@ -695,19 +720,16 @@ def _initial_shuffle(scene: SceneData, arena: RayArena, width: int,
     return shuffle(scene, arena, fb)
 
 
+@spanned("tracer.frame")
 def trace_image_stepped(scene: SceneData, arena: RayArena, width: int,
                         height: int, max_rounds: int = 64, accel=None,
-                        timer=None, impl=None) -> torch.Tensor:
-    """trace_image with the round count read on the host after each round,
-    and each round timed by `timer` (core.timing.Timer) when given. Same
-    results."""
+                        impl=None) -> torch.Tensor:
+    """trace_image with the count of live lanes read on the host after
+    each round (each round a `tracer.round` span). Same results."""
     arena, fb = _initial_shuffle(scene, arena, width, height)
     for r in range(max_rounds):
-        with (timer.phase(f"round{r}") if timer is not None
-              else contextlib.nullcontext()):
-            arena, fb, live = _round_step(scene, arena, fb, r, accel, impl)
-            n_live = int(live)
-        if n_live == 0:
+        arena, fb, live = _round_step(scene, arena, fb, r, accel, impl)
+        if _read(live) == 0:
             break
     return fb
 
@@ -811,6 +833,7 @@ def _compact_width(n: int) -> int:
     return -(-max(PACKET, n // 8) // PACKET) * PACKET
 
 
+@spanned("tracer.frame")
 def trace_image_fast_multi(scene: SceneData, rays: RayArena, width: int,
                            height: int, accel=None, max_rounds: int = 64,
                            samples: int = 1, tile_order: bool = True,
@@ -845,12 +868,8 @@ def trace_image_fast_multi(scene: SceneData, rays: RayArena, width: int,
     tile = _choose_tile(scene.num_triangles)
 
     def closest(o_obj, d_obj, mesh, queued, is_shadow=None):
-        if accel is not None:
-            return _intersect_bvh(scene, accel, o_obj, d_obj, mesh, queued,
-                                  is_shadow=is_shadow, impl=impl)
-        return intersect_closest(o_obj, d_obj, mesh, queued, scene.tri_v0,
-                                 scene.tri_e1, scene.tri_e2, scene.tri_mesh,
-                                 tile=tile)
+        return _intersect(scene, accel, o_obj, d_obj, mesh, queued, tile,
+                          is_shadow=is_shadow, impl=impl)
 
     def a_body(r, arena, hit, hitr):
         o_obj, d_obj, mesh = to_object_space(scene, arena)
@@ -886,13 +905,13 @@ def trace_image_fast_multi(scene: SceneData, rays: RayArena, width: int,
     hitr = torch.zeros((n,), dtype=torch.int32, device=dev)
     thresh = _compact_width(n)
     r = 0
-    while r < max_rounds and int(arena.active.sum()) > thresh:
+    while r < max_rounds and _read(arena.active.sum()) > thresh:
         arena, hit, hitr = a_body(r, arena, hit, hitr)
         r += 1
     sel = _live_first_sel(arena.active, thresh)
     arena_s = arena.map(lambda a: a[sel])
     hit_s, hitr_s = Hit(*(a[sel] for a in hit)), hitr[sel]
-    while r < max_rounds and bool(arena_s.active.any()):
+    while r < max_rounds and _read(arena_s.active.any()):
         arena_s, hit_s, hitr_s = a_body(r, arena_s, hit_s, hitr_s)
         r += 1
     # the tail's lanes back in place (sel holds no index twice)
@@ -910,15 +929,17 @@ def trace_image_fast_multi(scene: SceneData, rays: RayArena, width: int,
     if L == 0:
         return image_lib.clamp_rgb(fb)
     spawn, dep = _multi_resolve(scene, arena, hit, hitr, closest, max_rounds)
-    if dense_deposit:
-        fb = _dense_spawn_deposit(fb, spawn, dep, n, n0, samples, tiled,
-                                  width, height, T)
-    else:
-        m = spawn.shape[0]
-        fb = image_lib.local_add(
-            fb, spawn[:, 12].to(torch.int32), spawn[:, 6:9] * spawn[:, 11:12],
-            torch.ones((m,), dtype=torch.float32, device=dev), dep)
-    return image_lib.clamp_rgb(fb)
+    with span("tracer.deposit"):
+        if dense_deposit:
+            fb = _dense_spawn_deposit(fb, spawn, dep, n, n0, samples, tiled,
+                                      width, height, T)
+        else:
+            m = spawn.shape[0]
+            fb = image_lib.local_add(
+                fb, spawn[:, 12].to(torch.int32),
+                spawn[:, 6:9] * spawn[:, 11:12],
+                torch.ones((m,), dtype=torch.float32, device=dev), dep)
+        return image_lib.clamp_rgb(fb)
 
 
 def _multi_resolve(scene: SceneData, arena: RayArena, hit: Hit, hitr,
@@ -965,14 +986,14 @@ def _multi_resolve(scene: SceneData, arena: RayArena, hit: Hit, hitr,
     c_thresh = _compact_width(m)
     r = 0
     while (r < max_rounds
-           and int((s_valid & ~dead & ~done).sum()) > c_thresh):
+           and _read((s_valid & ~dead & ~done).sum()) > c_thresh):
         origin, inst, prev, dead, done = c_body(
             origin, inst, prev, dead, done, s_dir, s_tmax, s_valid)
         r += 1
     sel = _live_first_sel(s_valid & ~dead & ~done, c_thresh)
     small = [a[sel] for a in (origin, inst, prev, dead, done)]
     rows = [a[sel] for a in (s_dir, s_tmax, s_valid)]
-    while r < max_rounds and bool((rows[2] & ~small[3] & ~small[4]).any()):
+    while r < max_rounds and _read((rows[2] & ~small[3] & ~small[4]).any()):
         small = list(c_body(*small, *rows))
         r += 1
     dead = dead.index_copy(0, sel, small[3])
@@ -982,6 +1003,7 @@ def _multi_resolve(scene: SceneData, arena: RayArena, hit: Hit, hitr,
     return spawn, deposit
 
 
+@spanned("tracer.frame")
 def trace_image_fast(scene: SceneData, rays: RayArena, width: int,
                      height: int, accel=None, dense_deposit: bool = True,
                      samples: int = 1, tile_order: bool = True,
@@ -1021,13 +1043,8 @@ def trace_image_fast(scene: SceneData, rays: RayArena, width: int,
     for g in range(max_depth):
         o_obj, d_obj, ray_mesh = to_object_space(scene, arena)
         queued = arena.active & (arena.inst >= 0) & (ray_mesh >= 0)
-        if accel is not None:
-            hit = _intersect_bvh(scene, accel, o_obj, d_obj, ray_mesh,
-                                 queued, impl=impl)
-        else:
-            hit = intersect_closest(
-                o_obj, d_obj, ray_mesh, queued, scene.tri_v0, scene.tri_e1,
-                scene.tri_e2, scene.tri_mesh, tile=tile)
+        hit = _intersect(scene, accel, o_obj, d_obj, ray_mesh, queued, tile,
+                         impl=impl)
         surf_hits = queued & (hit.prim >= 0)
         arena, spawn_g = _process_surface_hits(
             scene, arena, hit, surf_hits, g, no_bounce=(g == max_depth - 1))
@@ -1052,13 +1069,8 @@ def trace_image_fast(scene: SceneData, rays: RayArena, width: int,
     else:
         s_valid_p = s_valid
     mesh_ids = scene.inst_mesh[0].expand(s_o.shape[0])
-    if accel is not None:
-        hit2 = _intersect_bvh(scene, accel, s_o, s_d, mesh_ids, s_valid_p,
-                              is_shadow=True, impl=impl)
-    else:
-        hit2 = intersect_closest(
-            s_o, s_d, mesh_ids, s_valid_p, scene.tri_v0, scene.tri_e1,
-            scene.tri_e2, scene.tri_mesh, tile=tile)
+    hit2 = _intersect(scene, accel, s_o, s_d, mesh_ids, s_valid_p, tile,
+                      is_shadow=True, impl=impl)
     occluded = hit2.prim[:m] >= 0
 
     # retire: unoccluded shadow rays deposit color*w (TracerBase.h:396-399),
@@ -1067,20 +1079,21 @@ def trace_image_fast(scene: SceneData, rays: RayArena, width: int,
     color = spawn[:, 6:9]
     deposit = s_valid & ~occluded & (dot3(color, color) > 0.0)
     m_gen = m // max_depth
-    for g in range(max_depth):
-        sl = slice(g * m_gen, (g + 1) * m_gen)
-        spawn_g, deposit_g = spawn[sl], deposit[sl]
-        if dense_deposit:
-            fb = _dense_spawn_deposit(fb, spawn_g, deposit_g,
-                                      arena.capacity, n0, samples, tiled,
-                                      width, height, T)
-        else:
-            fb = image_lib.local_add(
-                fb, spawn_g[:, 12].to(torch.int32),
-                spawn_g[:, 6:9] * spawn_g[:, 11:12],
-                torch.ones((m_gen,), dtype=torch.float32, device=dev),
-                deposit_g)
-    return image_lib.clamp_rgb(fb)
+    with span("tracer.deposit"):
+        for g in range(max_depth):
+            sl = slice(g * m_gen, (g + 1) * m_gen)
+            spawn_g, deposit_g = spawn[sl], deposit[sl]
+            if dense_deposit:
+                fb = _dense_spawn_deposit(fb, spawn_g, deposit_g,
+                                          arena.capacity, n0, samples, tiled,
+                                          width, height, T)
+            else:
+                fb = image_lib.local_add(
+                    fb, spawn_g[:, 12].to(torch.int32),
+                    spawn_g[:, 6:9] * spawn_g[:, 11:12],
+                    torch.ones((m_gen,), dtype=torch.float32, device=dev),
+                    deposit_g)
+        return image_lib.clamp_rgb(fb)
 
 
 def make_arena(camera_rays: RayArena, num_lights: int,

@@ -10,7 +10,8 @@ shading, the spawn append and the deposits are out-of-place tensor ops.
 Optimisers are `torch.optim` factories (a callable from the parameter list
 to an optimiser), the counterpart of an optax transformation: `step`
 zeroes the gradients, runs the forward and the backward and calls
-`opt.step()`, which updates the leaves in place.
+`opt.step()`, which updates the leaves in place: the spans
+`train.forward`, `train.backward` and `train.update` (core/timing.py).
 
 A deliberate difference from the JAX package: `make_sharded_train_step`
 returns the gradient of the loss it reports. The JAX step's gradient is n
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from gravit_tpu_torch.core.rays import RayArena
+from gravit_tpu_torch.core.timing import span
 from gravit_tpu_torch.parallel.distributed import DistGroup, Mesh
 from gravit_tpu_torch.render.scene_build import SceneData, refresh_geometry
 from gravit_tpu_torch.render.tracer import trace_image
@@ -107,10 +109,13 @@ def make_train_step(optimizer=None, rounds: int = 4, width: int = 64,
 
     def step(p: TrainParams, opt, scene: SceneData, arena: RayArena,
              target_fb: torch.Tensor):
-        opt.zero_grad(set_to_none=True)
-        loss = loss_fn(p, scene, arena, target_fb, width, height, rounds)
-        loss.backward()
-        opt.step()
+        with span("train.forward"):
+            opt.zero_grad(set_to_none=True)
+            loss = loss_fn(p, scene, arena, target_fb, width, height, rounds)
+        with span("train.backward"):
+            loss.backward()
+        with span("train.update"):
+            opt.step()
         return p, opt, loss.detach()
 
     return step, optimizer
@@ -168,24 +173,28 @@ def make_sharded_train_step(group_or_mesh, ray_axis: str = "rays",
 
     def step(p: TrainParams, opt, scene: SceneData, arena: RayArena,
              target_fb: torch.Tensor):
-        opt.zero_grad(set_to_none=True)
-        shards = shard_arena(arena, group.size)
-        s = apply_params(scene, p)
-        fbs = [trace_image(s, shards[m], width, height, max_rounds=rounds,
-                           unroll=True) for m in group.local]
-        if dist_group:
-            fb = _SumReplicated.apply(fbs[0], group)
-        else:
-            fb = group.all_reduce(fbs)[0]
-        loss = torch.mean((fb[:, :3] - target_fb[:, :3]) ** 2)
-        loss.backward()
-        if dist_group:
-            # every member reduces every leaf, in one order (a leaf no ray
-            # of this member reached has no grad here)
-            for x in p:
-                g = torch.zeros_like(x) if x.grad is None else x.grad
-                x.grad = group.all_reduce([g])[0]
-        opt.step()
+        with span("train.forward"):
+            opt.zero_grad(set_to_none=True)
+            shards = shard_arena(arena, group.size)
+            s = apply_params(scene, p)
+            fbs = [trace_image(s, shards[m], width, height,
+                               max_rounds=rounds, unroll=True)
+                   for m in group.local]
+            if dist_group:
+                fb = _SumReplicated.apply(fbs[0], group)
+            else:
+                fb = group.all_reduce(fbs)[0]
+            loss = torch.mean((fb[:, :3] - target_fb[:, :3]) ** 2)
+        with span("train.backward"):
+            loss.backward()
+            if dist_group:
+                # every member reduces every leaf, in one order (a leaf no
+                # ray of this member reached has no grad here)
+                for x in p:
+                    g = torch.zeros_like(x) if x.grad is None else x.grad
+                    x.grad = group.all_reduce([g])[0]
+        with span("train.update"):
+            opt.step()
         return p, opt, loss.detach()
 
     return step, optimizer

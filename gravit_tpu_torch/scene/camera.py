@@ -15,6 +15,7 @@ import torch
 from gravit_tpu_torch.core.math3d import cross3, norm3
 from gravit_tpu_torch.core.rays import (FLT_MAX, RayArena, RayType,
                                         VolumeRayType)
+from gravit_tpu_torch.core.timing import spanned
 from gravit_tpu_torch.device import resolve_device
 
 
@@ -51,6 +52,7 @@ class PerspectiveCamera:
         v = v / norm3(v)
         return u, v, w
 
+    @spanned("camera.generate_rays")
     def generate_rays(self, device=None, volume: bool = False) -> RayArena:
         """Whole-film primary ray wavefront (gvtCamera.cpp:233-312).
 

@@ -40,7 +40,8 @@ from gravit_tpu.render import tracer as jax_tracer
 
 from gravit_tpu_torch import interop
 from gravit_tpu_torch.core.math3d import mat4_translate_scale
-from gravit_tpu_torch.core.timing import Timer, count_rays
+from gravit_tpu_torch.core import timing
+from gravit_tpu_torch.core.timing import count_rays
 from gravit_tpu_torch.render import tracer
 from gravit_tpu_torch.render.renderer import render_surface
 from gravit_tpu_torch.render.scene_build import Instance, build_scene
@@ -169,18 +170,19 @@ def test_bvh_frames_match_jax(name):
 
 def test_looped_depth2_stepped_and_render_surface_match_jax():
     """SimpleApp at depth 2 (Russian roulette bounces across instances):
-    trace_image, trace_image_stepped (with a Timer), unroll=True and
-    render_surface's looped branch."""
+    trace_image, trace_image_stepped (its rounds recorded as spans),
+    unroll=True and render_surface's looped branch."""
     spec = chip_smoke.simple_app(32, 32, max_depth=2)
     jl, tl = both(spec, looped)
     tp.assert_multi_close(tl, jl, 32, 32)
     jscene = tp.jax_scene(spec)
     scene = tp.port_scene(jscene)
     arena = tracer.make_arena(tp.port_rays(tp.jax_rays(spec.camera)), 1)
-    timer = Timer()
-    stepped = tracer.trace_image_stepped(scene, arena, 32, 32, timer=timer)
+    with timing.recording() as rec:
+        stepped = tracer.trace_image_stepped(scene, arena, 32, 32)
     assert torch.equal(stepped, torch.tensor(tl))
-    assert 3 <= len(timer.totals) < 64 and "round0" in timer.report()
+    rounds = [s for s in rec.spans() if s.name == "tracer.round"]
+    assert 3 <= len(rounds) < 64 and "tracer.round" in rec.report()
     unrolled = tracer.trace_image(scene, arena, 32, 32, max_rounds=20,
                                   unroll=True)
     assert torch.equal(unrolled, torch.tensor(tl))

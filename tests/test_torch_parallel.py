@@ -24,6 +24,7 @@ import torch_parity as tp  # noqa: I001 (puts the repo root on sys.path)
 import chip_smoke
 
 from gravit_tpu_torch import parallel
+from gravit_tpu_torch.core import timing
 from gravit_tpu_torch.core.timing import GlobalCounter
 from gravit_tpu_torch.parallel import LocalGroup, global_mesh, host_array
 from gravit_tpu_torch.render.scene_build import build_scene
@@ -103,10 +104,13 @@ def test_host_array_counter_and_composite():
     assert [p.shape for p in parts] == [(2, 3)] * 4
     np.testing.assert_array_equal(torch.cat(parts).numpy(),
                                   np.arange(24).reshape(8, 3))
-    c = GlobalCounter()
-    c.add("rays", 3)
-    c.add("rays", 4)
-    assert c.values["rays"] == 7 and "rays" in c.report()
+    # host counts are spans of one name
+    with timing.recording() as rec:
+        for _ in range(7):
+            with timing.span("rays"):
+                pass
+    assert (sum(s.name == "rays" for s in rec.spans()) == 7
+            and "rays" in rec.report())
     sums = GlobalCounter.device_sum([torch.tensor(k) for k in range(4)], g)
     assert [int(s) for s in sums] == [6] * 4
     assert int(GlobalCounter.device_sum(torch.tensor(5))) == 5
