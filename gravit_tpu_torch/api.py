@@ -5,7 +5,10 @@ A user of the reference drives scenes through `api::gvtInit/createMesh/...`;
 every one of those entry points exists here with the same name, argument
 order and semantics (cited per function). State lives in the RenderContext
 scene database; `render()` compiles it into tensors on the card and runs
-the requested scheduler over the layout's members (render/renderer.py).
+the requested scheduler over the layout's members (render/renderer.py),
+reusing the last surface build while the database's scene is unchanged.
+The mesh functions and addInstance copy the arrays they are handed (as
+Mesh.cpp's push_back does), so a caller may reuse its buffer.
 
 Differences by design:
   - no MPI: `gvtsync()` is a replication no-op (every process builds the
@@ -122,13 +125,13 @@ def addMeshTriangles(name: str, n: int, triangles) -> None:
 
 def addMeshFaceNormals(name: str, n: int, normals) -> None:
     m: Mesh = _db().find(name)["ptr"]
-    fn = np.asarray(normals, np.float32).reshape(-1, 3)[:n]
+    fn = np.array(normals, np.float32).reshape(-1, 3)[:n]
     m.face_normals.extend(fn)
 
 
 def addMeshVertexNormals(name: str, n: int, normals) -> None:
     m: Mesh = _db().find(name)["ptr"]
-    vn = np.asarray(normals, np.float32).reshape(-1, 3)[:n]
+    vn = np.array(normals, np.float32).reshape(-1, 3)[:n]
     m.normals.extend(vn)
     if len(m.normals) == len(m.vertices):
         m.have_normals = True
@@ -174,7 +177,7 @@ def addMeshMaterials(name: str, n: int, mattype, kd, ks, alpha) -> None:
 
 def addMeshVertexColor(name: str, n: int, kd) -> None:
     m: Mesh = _db().find(name)["ptr"]
-    cols = np.asarray(kd, np.float32).reshape(-1, 3)[:n]
+    cols = np.array(kd, np.float32).reshape(-1, 3)[:n]
     m.vertex_colors.extend(cols)
 
 
@@ -185,7 +188,7 @@ def addInstance(instancename: str, meshname: str, m) -> None:
     """`m` is a 16-float COLUMN-major buffer (glm::make_mat4 layout)."""
     db = _db()
     node = db.create("Instances", "Instance", instancename)
-    mat = np.asarray(m, np.float32).reshape(4, 4).T  # column-major -> rows
+    mat = np.array(m, np.float32).reshape(4, 4).T  # column-major -> rows
     node["meshRef"] = meshname
     node["mat"] = mat
     node["id"] = len(db.group("Instances").children) - 1

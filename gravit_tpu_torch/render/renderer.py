@@ -20,20 +20,30 @@ Known differences from the JAX package, by design:
     builds no accel, as in the JAX package.
   * The surface arms gate on 1 <= max_depth: max_depth 0 raises instead of
     reaching the reference's IndexError.
+  * The scene cache: the JAX package compiles the meshes and builds the
+    scene and its BVH on every render. The single-device surface arm here
+    keeps its last build and reuses it while the database's meshes (by
+    object and revision), instances, lights and the device are unchanged,
+    as GraviT's ImageTracer reuses a built mesh adapter from its adapter
+    cache (ImageTracer.h:184-233). A camera or film change reuses; any
+    other change rebuilds, with frames bit-equal to a fresh Renderer's.
+    `render_surface`, the domain arm and the volume arms build on every
+    call.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
-from gravit_tpu_torch.accel.scene_accel import build_scene_bvh
+from gravit_tpu_torch.accel.scene_accel import SceneBVH, build_scene_bvh
 from gravit_tpu_torch.core.context import RenderContext
 from gravit_tpu_torch.core.timing import span, spanned
 from gravit_tpu_torch.device import resolve_device
 from gravit_tpu_torch.parallel import global_mesh
-from gravit_tpu_torch.render.scene_build import Instance, build_scene
+from gravit_tpu_torch.render.scene_build import (Instance, SceneData,
+                                                 build_scene)
 from gravit_tpu_torch.render.tracer import (MAX_FAST_DEPTH, make_arena,
                                             trace_image, trace_image_fast,
                                             trace_image_fast_multi)
@@ -61,32 +71,26 @@ DOMAIN_SCHEDULES = (1, 3)               # Domain, AsyncDomain
 BVH_MIN_TRIANGLES = 512
 
 
-def render_surface(meshes: Sequence[CompiledMesh],
-                   instances: Sequence[Instance], lights: Sequence[Light],
-                   camera: PerspectiveCamera, device=None, impl=None):
-    """Build the scene (and the BVH when the meshes hold 512 or more
-    triangles), then render one frame; the single-device branch of the
-    reference's Renderer (renderer.py:200-227):
-      one instance, max_depth <= 6   trace_image_fast
-      otherwise, max_depth <= 1      trace_image_fast_multi
-      otherwise                      make_arena + trace_image (looped)
-    Returns the (W*H, 4) framebuffer on `device`.
-
-    The gate is `1 <= max_depth`: max_depth 0 raises here instead of
-    reaching the reference's IndexError. The BVH path runs the traversal
-    kernel on the card and its plain version on the CPU. `impl="plain"`
-    forces the plain version on the card (comparisons only).
-    """
+def build_surface(meshes: Sequence[CompiledMesh],
+                  instances: Sequence[Instance], lights: Sequence[Light],
+                  device=None):
+    """The build half of render_surface: (the scene, the BVH when the
+    meshes hold 512 or more triangles, else None) on `device`. Calls
+    build_scene and build_scene_bvh through this module's globals."""
     device = resolve_device(device)
-    if camera.max_depth < 1:
-        raise NotImplementedError(
-            f"max_depth {camera.max_depth}: a frame needs max_depth >= 1")
     with span("facade.build_scene"):
         scene = build_scene(meshes, instances, lights, device=device)
     accel = None
     if sum(m.num_triangles for m in meshes) >= BVH_MIN_TRIANGLES:
         with span("facade.build_bvh"):
             accel = build_scene_bvh(meshes, device=device)
+    return scene, accel
+
+
+def trace_surface(scene, accel, camera: PerspectiveCamera, device=None,
+                  impl=None):
+    """The trace half of render_surface: one frame of a built scene."""
+    device = resolve_device(device)
     rays = camera.generate_rays(device)
     W, H = camera.film_width, camera.film_height
     if scene.num_instances == 1 and camera.max_depth <= MAX_FAST_DEPTH:
@@ -98,6 +102,30 @@ def render_surface(meshes: Sequence[CompiledMesh],
                                       samples=camera.samples, impl=impl)
     return trace_image(scene, make_arena(rays, scene.num_lights), W, H,
                        accel=accel, impl=impl)
+
+
+def render_surface(meshes: Sequence[CompiledMesh],
+                   instances: Sequence[Instance], lights: Sequence[Light],
+                   camera: PerspectiveCamera, device=None, impl=None):
+    """Build the scene (and the BVH when the meshes hold 512 or more
+    triangles), then render one frame; the single-device branch of the
+    reference's Renderer (renderer.py:200-227):
+      one instance, max_depth <= 6   trace_image_fast
+      otherwise, max_depth <= 1      trace_image_fast_multi
+      otherwise                      make_arena + trace_image (looped)
+    Returns the (W*H, 4) framebuffer on `device`. Every call builds.
+
+    The gate is `1 <= max_depth`: max_depth 0 raises here instead of
+    reaching the reference's IndexError. The BVH path runs the traversal
+    kernel on the card and its plain version on the CPU. `impl="plain"`
+    forces the plain version on the card (comparisons only).
+    """
+    device = resolve_device(device)
+    if camera.max_depth < 1:
+        raise NotImplementedError(
+            f"max_depth {camera.max_depth}: a frame needs max_depth >= 1")
+    scene, accel = build_surface(meshes, instances, lights, device=device)
+    return trace_surface(scene, accel, camera, device=device, impl=impl)
 
 
 def render_volume(volumes: Sequence[Volume],
@@ -127,6 +155,53 @@ def render_volume(volumes: Sequence[Volume],
                         impl=impl)
 
 
+def _frozen(value):
+    """A database field's value in a form that == compares whole."""
+    if isinstance(value, np.ndarray):
+        return (value.dtype, value.shape, value.tobytes())
+    if isinstance(value, (tuple, list)):
+        return tuple(_frozen(v) for v in value)
+    return value
+
+
+class SceneKey(NamedTuple):
+    """What the single-device surface build reads from the database, in
+    node order: each mesh node's Mesh (held, compared by identity) with
+    its name and revision; each instance's name, meshRef and matrix; each
+    light's name, type and fields; the device. Camera and film are not in
+    it."""
+
+    meshes: tuple
+    values: tuple
+
+    @classmethod
+    def of(cls, db: RenderContext, device) -> "SceneKey":
+        meshes, values = [], [device]
+        for n in db.group("Data").children.values():
+            if n.type == "Mesh":
+                meshes.append(n["ptr"])
+                values.append((n.name, n["ptr"].revision))
+        for n in db.group("Instances").children.values():
+            f = n.fields
+            values.append((n.name, f["meshRef"], _frozen(f["mat"])))
+        for n in db.group("Lights").children.values():
+            values.append((n.name, n.type, _frozen(tuple(n.fields.items()))))
+        return cls(tuple(meshes), tuple(values))
+
+    def same(self, other: "SceneKey") -> bool:
+        return (len(self.meshes) == len(other.meshes)
+                and all(a is b for a, b in zip(self.meshes, other.meshes))
+                and self.values == other.values)
+
+
+class SurfaceBuild(NamedTuple):
+    """A single-device surface build and the key it was made from."""
+
+    key: SceneKey
+    scene: SceneData
+    accel: Optional[SceneBVH]
+
+
 class Renderer:
     """The facade's renderer (gvtRenderer): one per process, or one per
     layout for a caller that builds its own (`Renderer(mesh=...)`).
@@ -134,7 +209,11 @@ class Renderer:
     The layout: the Mesh given here, else the one api.gvtInit(mesh=) put in
     the database, else parallel.global_mesh() on the device given to
     api.gvtInit (None: the card). Its one axis is the domain axis of the
-    multi-member arms."""
+    multi-member arms.
+
+    The single-device surface arm keeps its last build (`scene_build`:
+    one entry per Renderer) and reuses it while the database's SceneKey
+    holds."""
 
     _instance: "Optional[Renderer]" = None
 
@@ -142,6 +221,7 @@ class Renderer:
         self._fb = {}
         self._films = {}
         self.mesh = mesh
+        self.scene_build: Optional[SurfaceBuild] = None
 
     @classmethod
     def instance(cls) -> "Renderer":
@@ -151,6 +231,9 @@ class Renderer:
 
     @classmethod
     def reset(cls) -> None:
+        """Drop the process's Renderer and free its kept build."""
+        if cls._instance is not None:
+            cls._instance.scene_build = None
         cls._instance = None
 
     # -- the layout and the scene, from the database ----------------------
@@ -198,6 +281,23 @@ class Renderer:
                      for n in db.group("Instances").children.values()]
         return meshes, instances, self._lights(db)
 
+    def _surface_build(self, db: RenderContext, device):
+        """(scene, accel) of the database's surfaces on `device`: the kept
+        build while its key holds (a `facade.scene_reused` span), else a
+        new one that replaces it (a `facade.scene_build` span around the
+        compile and both builds)."""
+        key = SceneKey.of(db, device)
+        if self.scene_build is not None and self.scene_build.key.same(key):
+            with span("facade.scene_reused"):
+                return self.scene_build.scene, self.scene_build.accel
+        self.scene_build = None         # freed before its replacement is made
+        with span("facade.scene_build"):
+            meshes, instances, lights = self._surface_scene(db)
+            scene, accel = build_surface(meshes, instances, lights,
+                                         device=device)
+        self.scene_build = SurfaceBuild(key, scene, accel)
+        return scene, accel
+
     def _volume_scene(self, db: RenderContext):
         vol_nodes = [n for n in db.group("Data").children.values()
                      if n.type == "Volume"]
@@ -226,7 +326,8 @@ class Renderer:
           volume, otherwise                       render_volume
           surface, Domain/AsyncDomain schedule, more than one member
                                                   DomainRenderer (no accel)
-          surface, otherwise                      render_surface
+          surface, otherwise                      trace_surface of the kept
+                                                  or a new build
         """
         db = RenderContext.instance()
         sched = db.group("Schedulers").children[name]
@@ -256,13 +357,13 @@ class Renderer:
         if camera.max_depth < 1:
             raise NotImplementedError(
                 f"max_depth {camera.max_depth}: a frame needs max_depth >= 1")
-        meshes, instances, lights = self._surface_scene(db)
         if domain:
+            meshes, instances, lights = self._surface_scene(db)
             dr = DomainRenderer.build(meshes, instances, lights, mesh, axis)
             fb = dr.render(camera)
         else:
-            fb = render_surface(meshes, instances, lights, camera,
-                                device=device)
+            scene, accel = self._surface_build(db, device)
+            fb = trace_surface(scene, accel, camera, device=device)
         self._fb[name] = fb
 
     def framebuffer(self, name: str):

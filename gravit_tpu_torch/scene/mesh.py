@@ -10,6 +10,7 @@ faces_to_normals stores the face's own vertex indices (I, J, K).
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Optional
 
 import numpy as np
@@ -17,9 +18,59 @@ import numpy as np
 from gravit_tpu_torch.scene.material import Material
 
 
+# one clock for every edit of every mesh: a later edit reads a larger stamp
+_CLOCK = itertools.count(1)
+
+_LIST_FIELDS = ("vertices", "faces", "normals", "face_normals",
+                "vertex_colors", "face_materials")
+
+
+class _EditedList(list):
+    """A list that stamps the edit clock on every change made through it,
+    so the Mesh that holds it sees the change in its revision."""
+
+    __slots__ = ("stamp",)
+
+    def __init__(self, items=()):
+        super().__init__(items)
+        self.stamp = next(_CLOCK)
+
+
+def _stamping(name: str):
+    edit = getattr(list, name)
+
+    def run(self, *args, **kwargs):
+        out = edit(self, *args, **kwargs)
+        self.stamp = next(_CLOCK)
+        return out
+
+    run.__name__ = name
+    return run
+
+
+for _name in ("append", "extend", "insert", "pop", "remove", "clear", "sort",
+              "reverse", "__setitem__", "__delitem__", "__iadd__",
+              "__imul__"):
+    setattr(_EditedList, _name, _stamping(_name))
+
+
 @dataclasses.dataclass
 class Mesh:
-    """Mutable host-side mesh under construction (the api.* target)."""
+    """Mutable host-side mesh under construction (the api.* target).
+
+    The editing contract: `revision` grows with every edit of the mesh, and
+    the facade rebuilds a mesh's scene only when it grows (render/
+    renderer.py). An edit is a method call, an assignment to a field, or a
+    change through a list field (append, extend, +=, item assignment, del,
+    pop, clear, insert, remove, sort, reverse). Assigning a plain list to a
+    list field stores a copy of it. The add_* methods and the api copy the
+    arrays they are given, as Mesh.cpp's push_back does, so a caller may
+    reuse its buffer. Not seen, and so not allowed once the mesh has been
+    rendered: writing into a row the lists hold (`m.vertices[0][1] = 2`)
+    and changing a Material in place; assign a new row or Material instead.
+    The bounding box that compile(), finish() and compute_bounding_box()
+    store is derived from the vertices and is no edit.
+    """
 
     vertices: list = dataclasses.field(default_factory=list)
     faces: list = dataclasses.field(default_factory=list)
@@ -32,14 +83,28 @@ class Mesh:
     bounds_min: Optional[np.ndarray] = None
     bounds_max: Optional[np.ndarray] = None
 
+    def __setattr__(self, name, value) -> None:
+        if name in _LIST_FIELDS and not isinstance(value, _EditedList):
+            value = _EditedList(value)
+        object.__setattr__(self, name, value)
+        object.__setattr__(self, "_stamp", next(_CLOCK))
+
+    @property
+    def revision(self) -> int:
+        """The clock's stamp of the mesh's latest edit: equal readings mean
+        no edit in between."""
+        d = self.__dict__
+        return max(d["_stamp"], *(d[k].stamp for k in _LIST_FIELDS))
+
     def add_vertices(self, verts: np.ndarray) -> None:
-        verts = np.asarray(verts, np.float32).reshape(-1, 3)
+        verts = np.array(verts, np.float32).reshape(-1, 3)
         self.vertices.extend(verts)
 
     def add_faces(self, tris: np.ndarray) -> None:
         """1-based vertex indices; degenerate faces dropped (Mesh.cpp:103-110)."""
         tris = np.asarray(tris, np.int64).reshape(-1, 3) - 1
         v = np.asarray(self.vertices, np.float32)
+        kept = []
         for a, b, c in tris:
             if (
                 np.array_equal(v[a], v[b])
@@ -47,7 +112,8 @@ class Mesh:
                 or np.array_equal(v[c], v[a])
             ):
                 continue
-            self.faces.append((int(a), int(b), int(c)))
+            kept.append((int(a), int(b), int(c)))
+        self.faces.extend(kept)
 
     def generate_normals(self) -> None:
         """Angle-unweighted vertex normal accumulation (Mesh.cpp:116-155)."""
@@ -69,8 +135,9 @@ class Mesh:
 
     def compute_bounding_box(self) -> None:
         v = np.asarray(self.vertices, np.float32)
-        self.bounds_min = v.min(axis=0)
-        self.bounds_max = v.max(axis=0)
+        # derived from the vertices: stored without a stamp
+        object.__setattr__(self, "bounds_min", v.min(axis=0))
+        object.__setattr__(self, "bounds_max", v.max(axis=0))
 
     def finish(self, compute_normals: bool = True) -> "CompiledMesh":
         self.compute_bounding_box()

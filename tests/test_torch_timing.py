@@ -72,8 +72,12 @@ def test_api_frame_under_the_profiler():
     roots = [s for s in spans if s.parent is None]
     assert [s.name for s in roots] == ["facade.render"]
     children = {s.name for s in spans if s.parent == 0}
-    assert {"facade.compile_meshes", "facade.build_scene",
-            "camera.generate_rays", "tracer.frame"} <= children
+    assert {"facade.scene_build", "camera.generate_rays",
+            "tracer.frame"} <= children
+    build = [s.name for s in spans
+             if s.parent is not None and spans[s.parent].name
+             == "facade.scene_build"]
+    assert {"facade.compile_meshes", "facade.build_scene"} <= set(build)
     names = {s.name for s in spans}
     assert TRACER_PHASES | {"tracer.sync"} <= names
     # each span is one CPU function event of its name, none an annotation
