@@ -1687,6 +1687,26 @@ def count_rounds(fn) -> tuple:
     return out, len(calls)
 
 
+def count_held_bricks(fn) -> tuple:
+    """(fn(), per march_round call the number of bricks that hold a queued
+    ray, read from the arena the call is given: the passes it makes)."""
+    held = []
+    orig = vt.march_round
+
+    def record(scene, arena, *args, **kw):
+        queued = arena.active & (arena.inst >= 0)
+        held.append(len(set(
+            scene.inst_vol[arena.inst[queued].long()].tolist())))
+        return orig(scene, arena, *args, **kw)
+
+    vt.march_round = record
+    try:
+        out = fn()
+    finally:
+        vt.march_round = orig
+    return out, held
+
+
 def slice_bound_ms(plan, pairs: int, ray_bytes: int = 61) -> tuple:
     """Least time the card could take for one slice-march launch: its fp32
     operations (this run's marched pairs) over the fp32 peak, against its
@@ -1957,16 +1977,17 @@ def volume_phases(dev, card: str, film: int = 512, small: int = 64,
             main_counts[key] += counts[key]
 
     # two bricks through the wavefront tracer: K4 under march_round, one
-    # launch per brick per round; then the gather march for both bricks
+    # launch a round per brick that holds a queued ray; then the gather
+    # march for both bricks
     bricks = make_volume_scene("bricks", split, W, H)
     bscene = build_volume_scene(bricks.volumes, bricks.instances, device=dev)
     brays = bricks.camera.generate_rays(dev, volume=True)
     barena = make_arena(brays, 0)
     saxes = vt.slice_axes_for(bscene, brays.direction)
-    _, rounds = count_rounds(lambda: vt.trace_volume(
+    _, held = count_held_bricks(lambda: vt.trace_volume(
         bscene, barena, W, H, slice_axes=saxes))
     fb_wave, counts = check_volume_frame(
-        "frame_wavefront", "V2x49", bricks, {"slice": 2 * rounds, "slab": 0})
+        "frame_wavefront", "V2x49", bricks, {"slice": sum(held), "slab": 0})
     for key in counts:
         main_counts[key] += counts[key]
     # the wavefront's launches carry masks and, from the second round on,

@@ -93,7 +93,10 @@ def _permute_volume(samples, axis: int, flip: bool):
     rem = [d for d in (0, 1, 2) if d != a_dim]
     S = samples.permute(a_dim, rem[0], rem[1])
     if flip:
-        S = torch.flip(S, dims=(0,))
+        # one gather into a new contiguous brick (torch.flip keeps the
+        # permuted strides, and _prepare would copy its output again)
+        rev = torch.arange(S.shape[0] - 1, -1, -1, device=S.device)
+        S = S.index_select(0, rev)
     world_of_dim = {2: 0, 1: 1, 0: 2}
     return S, world_of_dim[rem[0]], world_of_dim[rem[1]]
 
@@ -194,18 +197,35 @@ class _Plan:
     slices: list              # [(C0 0-d tensor, Cx, Cy, Cz, |n|)]
 
 
+def _upload(values: list, dev) -> torch.Tensor:
+    """values as float32 on dev. A copy to the card from pageable memory
+    holds the host until the stream has drained; from page-locked memory it
+    joins the stream, and the host goes on."""
+    t = torch.tensor(values, dtype=torch.float32)
+    if dev.type != "cuda":
+        return t.to(dev)
+    return t.pin_memory().to(dev, non_blocking=True)
+
+
 def _prepare(o_obj, d_obj, active, samples, color_lut, opacity_lut, *, axis,
              flip, step, base_step, low, high, origin, spacing, isovalues,
              subgrids, slices) -> _Plan:
     dev = o_obj.device
     f32 = dict(dtype=torch.float32, device=dev)
-    origin_a = torch.as_tensor(origin, **f32)
-    spacing_a = torch.as_tensor(spacing, **f32)
     spacing = tuple(float(x) for x in spacing)
     S, w_sub, w_lane = _permute_volume(samples, axis, flip)
     nz = S.shape[0]
     dzg = step / spacing[axis]
     n_planes = int(-(-float(nz - 1) // dzg))
+    # the host's constants in one upload: spacing, dzg, the spacing of the
+    # (lane, sublane, march) axes, and the origin unless it is on the card
+    consts = [*spacing, dzg, spacing[w_lane], spacing[w_sub], spacing[axis]]
+    if not torch.is_tensor(origin):
+        consts += [float(x) for x in origin]
+    consts = _upload(consts, dev)
+    spacing_a, dzg_t, sp_t = consts[0:3], consts[3], consts[4:7]
+    origin_a = (torch.as_tensor(origin, **f32) if torch.is_tensor(origin)
+                else consts[7:10])
 
     ox, oy, oz, dx, dy, dz = _grid_rays(
         o_obj, d_obj, origin_a, spacing_a, axis, flip, nz, w_sub, w_lane)
@@ -237,10 +257,7 @@ def _prepare(o_obj, d_obj, active, samples, color_lut, opacity_lut, *, axis,
     return _Plan(S=S.contiguous(), rows=(ox, oy, oz, dx, dy, dz, corr),
                  active=active if active.dtype == torch.bool else active > 0,
                  rgba=rgba.contiguous(), low=low, high=high, span=span,
-                 dzg=dzg, n_planes=n_planes,
-                 dzg_t=torch.tensor(dzg, **f32),
-                 sp_t=torch.tensor((spacing[w_lane], spacing[w_sub],
-                                    spacing[axis]), **f32),
+                 dzg=dzg, n_planes=n_planes, dzg_t=dzg_t, sp_t=sp_t,
                  iso=iso, subs=subs, slices=slice_rows)
 
 

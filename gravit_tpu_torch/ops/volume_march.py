@@ -21,6 +21,7 @@ import torch
 
 from gravit_tpu_torch.core.math3d import dot3
 from gravit_tpu_torch.core.rays import RAY_BOUNDARY, RAY_OPAQUE
+from gravit_tpu_torch.core.timing import span
 from gravit_tpu_torch.scene.transfer import apply_tf
 
 OPACITY_TERMINATION = 0.99
@@ -231,7 +232,9 @@ def march_brick(o, d, active, color_in, w_in,
             t_next = t_in + step * (ko * chunk + 0.5)
             alive = active & (t_next < t_out) \
                 & (carry[1] < OPACITY_TERMINATION)
-            if not bool(alive.any()):
+            with span("tracer.sync"):      # the host waits for the card
+                any_alive = bool(alive.any())
+            if not any_alive:
                 break
         carry = body(ko, carry)
     color, w = carry[0], carry[1]

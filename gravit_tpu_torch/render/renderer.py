@@ -131,9 +131,9 @@ def render_surface(meshes: Sequence[CompiledMesh],
 def render_volume(volumes: Sequence[Volume],
                   instances: Sequence[Tuple[int, np.ndarray]],
                   camera: PerspectiveCamera, device=None, impl=None):
-    """Build the volume scene and render one frame. `instances` is a list
-    of (volume_id, 4x4 world transform). Returns the (W*H, 4) framebuffer
-    on `device`.
+    """Build the volume scene (a `facade.volume_build` span) and render one
+    frame. `instances` is a list of (volume_id, 4x4 world transform).
+    Returns the (W*H, 4) framebuffer on `device`.
 
     One brick in one instance whose rays pass the slice gate renders as the
     single-launch megapass (trace_volume_fast). Anything else takes the
@@ -142,7 +142,8 @@ def render_volume(volumes: Sequence[Volume],
     kernels; `impl="plain"` forces its plain version (comparisons only).
     """
     device = resolve_device(device)
-    scene = build_volume_scene(volumes, instances, device=device)
+    with span("facade.volume_build"):
+        scene = build_volume_scene(volumes, instances, device=device)
     rays = camera.generate_rays(device, volume=True)
     ok, axis, flip = can_slice_march(scene, rays.direction)
     if ok:
@@ -324,6 +325,8 @@ class Renderer:
           volume, Domain/AsyncDomain schedule, more than one member, one
             brick shape, more than one instance   trace_volume_domain
           volume, otherwise                       render_volume
+        The volume arms read their bricks from the database in a
+        `facade.volume_build` span.
           surface, Domain/AsyncDomain schedule, more than one member
                                                   DomainRenderer (no accel)
           surface, otherwise                      trace_surface of the kept
@@ -339,7 +342,8 @@ class Renderer:
         domain = int(sched["type"]) in DOMAIN_SCHEDULES and n_dev > 1
 
         if sched["volume"]:
-            volumes, instances = self._volume_scene(db)
+            with span("facade.volume_build"):
+                volumes, instances = self._volume_scene(db)
             same_shape = len({tuple(v.samples.shape) for v in volumes}) == 1
             if domain and same_shape and len(instances) > 1:
                 stacked, owners = partition_volume_scene(

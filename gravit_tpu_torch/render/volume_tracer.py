@@ -12,6 +12,14 @@ Round structure mirrors the reference's volume path (SURVEY.md §3.4):
      rays with OPAQUE|EXTERNAL deposit color*w and retire
 The initial camera-ray filter is the generic 0.95-bump queueing
 (DomainTracer.h:158-167): flags are only honored after the first march.
+
+Spans (core/timing.py): `volume.frame` around each tracer call,
+`volume.round` around each round's march and shuffle, `volume.march_slice`
+/ `volume.march_gather` around each brick's pass by its engine (the
+megapass's one launch is a slice pass), `volume.shuffle`,
+`volume.instance_search` around the instance-box query, and `tracer.sync`
+around every host read of the card's answer (the round test, the gates'
+reductions, the gather march's early-exit test).
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from gravit_tpu_torch.core.math3d import dot3
 from gravit_tpu_torch.core.rays import (FLT_MAX, RAY_BOUNDARY,
                                         RAY_EXTERNAL_BOUNDARY, RAY_OPAQUE,
                                         RayArena, VolumeRayType)
+from gravit_tpu_torch.core.timing import span, spanned
 from gravit_tpu_torch.ops import slice_march as sm
 from gravit_tpu_torch.ops.volume_march import march_brick
 from gravit_tpu_torch.render.volume_scene import VolumeSceneData
@@ -31,6 +40,13 @@ from gravit_tpu_torch.scene import image as image_lib
 RAY_EPSILON = 1e-6
 
 
+def _host(x: torch.Tensor):
+    """x on the host, as numpy: the tracer waits for the card here."""
+    with span("tracer.sync"):
+        return x.cpu().numpy()
+
+
+@spanned("volume.instance_search")
 def _instance_bvh_hit(scene: VolumeSceneData, arena: RayArena,
                       exclude: torch.Tensor):
     """Closest instance AABB (leaf `update=true` semantics), excluding
@@ -76,11 +92,25 @@ def _per_volume(field: tuple, v: int) -> tuple:
     return field[v] if v < len(field) else ()
 
 
+def _queued_volumes(scene: VolumeSceneData, arena: RayArena) -> tuple:
+    """(any ray queued, the volumes holding a queued ray), in one host
+    read: the round test."""
+    queued = arena.active & (arena.inst >= 0)
+    safe_inst = torch.clamp(arena.inst, 0, scene.num_instances - 1).long()
+    vol_of_ray = torch.where(queued, scene.inst_vol[safe_inst], -1)
+    ids = torch.arange(scene.num_volumes, device=queued.device)
+    held = (vol_of_ray[None, :] == ids[:, None]).any(dim=1)
+    read = _host(torch.cat([queued.any()[None], held]))
+    return bool(read[0]), tuple(int(v) for v in np.nonzero(read[1:])[0])
+
+
 def march_round(scene: VolumeSceneData, arena: RayArena,
                 differentiable: bool = False, slice_axes: tuple = (),
-                impl=None, film_width=None):
+                impl=None, film_width=None, volumes=None):
     """Phase 1: march all queued rays through their bricks (one pass per
-    volume; rays of other volumes are masked).
+    volume; rays of other volumes are masked). `volumes`, if given, names
+    the volumes that hold a queued ray (_queued_volumes); the others' passes
+    would change nothing and are left out.
 
     Rays whose instance has no LOCAL brick data (inst_vol == -1 under the
     domain scheduler) park untouched.
@@ -102,7 +132,7 @@ def march_round(scene: VolumeSceneData, arena: RayArena,
     d_obj = dot3(m3, arena.direction[:, None, :])
 
     color, w, depth = arena.color, arena.w, arena.depth
-    for v in range(scene.num_volumes):
+    for v in range(scene.num_volumes) if volumes is None else volumes:
         mask = queued & (vol_of_ray == v)
         use_slice = (not differentiable and v < len(slice_axes)
                      and slice_axes[v] is not None
@@ -114,28 +144,30 @@ def march_round(scene: VolumeSceneData, arena: RayArena,
         if use_slice:
             axis, flip = slice_axes[v]
             spacing = scene.vol_meta[v][1]     # static (sizes the ladder)
-            c2, w2, flags = sm.slice_march(
-                o_obj, d_obj, mask, color, w,
-                scene.vol_samples[v], scene.vol_color_lut[v],
-                scene.vol_opacity_lut[v],
-                axis=int(axis), flip=bool(flip),
-                step=float(scene.vol_step[v]),
-                base_step=float(min(spacing)),
-                low=scene.vol_vrange[v][0], high=scene.vol_vrange[v][1],
-                origin=scene.vol_origin[v], spacing=tuple(spacing),
-                isovalues=isovals, subgrids=subs, slices=slcs, impl=impl,
-                film_width=film_width)
+            with span("volume.march_slice"):
+                c2, w2, flags = sm.slice_march(
+                    o_obj, d_obj, mask, color, w,
+                    scene.vol_samples[v], scene.vol_color_lut[v],
+                    scene.vol_opacity_lut[v],
+                    axis=int(axis), flip=bool(flip),
+                    step=float(scene.vol_step[v]),
+                    base_step=float(min(spacing)),
+                    low=scene.vol_vrange[v][0], high=scene.vol_vrange[v][1],
+                    origin=scene.vol_origin[v], spacing=tuple(spacing),
+                    isovalues=isovals, subgrids=subs, slices=slcs, impl=impl,
+                    film_width=film_width)
         else:
-            c2, w2, flags = march_brick(
-                o_obj, d_obj, mask, color, w,
-                scene.vol_samples[v], scene.vol_origin[v],
-                scene.vol_spacing[v],
-                scene.vol_lo[v], scene.vol_hi[v],
-                scene.vol_color_lut[v], scene.vol_opacity_lut[v],
-                scene.vol_vrange[v],
-                scene.vol_step[v], scene.vol_max_steps[v],
-                subgrids=subs, isovalues=isovals, slices=slcs,
-                early_exit=not differentiable)
+            with span("volume.march_gather"):
+                c2, w2, flags = march_brick(
+                    o_obj, d_obj, mask, color, w,
+                    scene.vol_samples[v], scene.vol_origin[v],
+                    scene.vol_spacing[v],
+                    scene.vol_lo[v], scene.vol_hi[v],
+                    scene.vol_color_lut[v], scene.vol_opacity_lut[v],
+                    scene.vol_vrange[v],
+                    scene.vol_step[v], scene.vol_max_steps[v],
+                    subgrids=subs, isovalues=isovals, slices=slcs,
+                    early_exit=not differentiable)
         color = torch.where(mask[:, None], c2, color)
         w = torch.where(mask, w2, w)
         depth = torch.where(mask, flags, depth)
@@ -149,6 +181,7 @@ def march_round(scene: VolumeSceneData, arena: RayArena,
     )
 
 
+@spanned("volume.shuffle")
 def shuffle_volume(scene: VolumeSceneData, arena: RayArena,
                    fb: torch.Tensor):
     """Phase 2: the volume flag protocol (DomainTracer.cpp:255-305)."""
@@ -187,6 +220,42 @@ def _as_f64(x, device=None) -> torch.Tensor:
     return torch.as_tensor(x).to(device=device, dtype=torch.float64)
 
 
+def _gate_stats(minv_list, directions) -> np.ndarray:
+    """Per instance of minv_list, the reductions _slice_gate decides on,
+    over the normalized OBJECT-space directions: rows (mean, min |d|, max,
+    min), one column per object axis; (instances, 4, 3) float64. The
+    float64 reductions run where `directions` lives, and their results come
+    to the host in one read."""
+    d = _as_f64(directions)
+    stats = []
+    for minv in minv_list:
+        m3 = _as_f64(minv, d.device)[:3, :3]
+        d_obj = dot3(m3[None], d[:, None, :])
+        dn = d_obj / torch.clamp(
+            torch.linalg.norm(d_obj, dim=-1, keepdim=True), min=1e-30)
+        stats.append(torch.stack([dn.mean(dim=0), dn.abs().amin(dim=0),
+                                  dn.amax(dim=0), dn.amin(dim=0)]))
+    if not stats:
+        return np.zeros((0, 4, 3))
+    return _host(torch.stack(stats))
+
+
+def _gate_verdict(stats) -> tuple:
+    """(ok, axis, flip) of _slice_gate from its instances' _gate_stats."""
+    axis, flip = 0, False
+    for j, (mean, amin, dmax, dmin) in enumerate(stats):
+        a, f = sm.choose_slice_axis(mean)
+        if j == 0:
+            axis, flip = a, f
+        elif (a, f) != (axis, flip):
+            return False, axis, flip
+        if amin[axis] < sm.MIN_AXIS_COMPONENT:
+            return False, axis, flip
+        if (dmax[axis] > 0.0) if flip else (dmin[axis] < 0.0):
+            return False, axis, flip
+    return True, axis, flip
+
+
 def _slice_gate(minv_list, directions) -> tuple:
     """Object-space slice-path gate shared by can_slice_march /
     slice_axes_for. slice_march marches OBJECT-space rays
@@ -201,29 +270,9 @@ def _slice_gate(minv_list, directions) -> tuple:
       - all d_obj[:, axis] sharing one sign consistent with the flip:
         a ray opposing the flip would march the fixed ascending plane
         ladder back-to-front and composite in the wrong order.
-    `directions` is an (N, 3) array or tensor of world directions; the
-    float64 reductions run where it lives and only their few results come
-    to the host. Returns (ok, axis, flip)."""
-    d = _as_f64(directions)
-    axis, flip = 0, False
-    for j, minv in enumerate(minv_list):
-        m3 = _as_f64(minv, d.device)[:3, :3]
-        d_obj = dot3(m3[None], d[:, None, :])
-        dn = d_obj / torch.clamp(
-            torch.linalg.norm(d_obj, dim=-1, keepdim=True), min=1e-30)
-        a, f = sm.choose_slice_axis(dn.mean(dim=0).cpu().numpy())
-        if j == 0:
-            axis, flip = a, f
-        elif (a, f) != (axis, flip):
-            return False, axis, flip
-        da = dn[:, axis]
-        amin, dmax, dmin = torch.stack(
-            [da.abs().min(), da.max(), da.min()]).tolist()
-        if amin < sm.MIN_AXIS_COMPONENT:
-            return False, axis, flip
-        if (dmax > 0.0) if flip else (dmin < 0.0):
-            return False, axis, flip
-    return True, axis, flip
+    `directions` is an (N, 3) array or tensor of world directions (see
+    _gate_stats). Returns (ok, axis, flip)."""
+    return _gate_verdict(_gate_stats(minv_list, directions))
 
 
 def _has_features(scene: VolumeSceneData, v: int) -> bool:
@@ -263,6 +312,7 @@ def _features_on_slice_ok(scene: VolumeSceneData, v: int) -> bool:
     return total <= sm.SLAB_BYTES
 
 
+@spanned("volume.frame")
 def trace_volume_fast(scene: VolumeSceneData, rays: RayArena, width: int,
                       height: int, axis: int | None = None,
                       flip: bool | None = None,
@@ -298,7 +348,7 @@ def trace_volume_fast(scene: VolumeSceneData, rays: RayArena, width: int,
         d = _as_f64(rays.direction)
         m3 = _as_f64(scene.inst_minv[0], d.device)[:3, :3]
         axis, flip = sm.choose_slice_axis(
-            dot3(m3[None], d[:, None, :]).mean(dim=0).cpu().numpy())
+            _host(dot3(m3[None], d[:, None, :]).mean(dim=0)))
 
     origin, spacing, (low, high) = scene.vol_meta[0]
     # object-space transform: broadcast-multiply + small-axis sums, NOT a
@@ -311,20 +361,21 @@ def trace_volume_fast(scene: VolumeSceneData, rays: RayArena, width: int,
     n = rays.capacity
     active = rays.active if rays.active.dtype == torch.bool \
         else rays.active > 0
-    color, w, _flags = sm.slice_march(
-        o_obj, d_obj, active, rays.color, rays.w,
-        scene.vol_samples[0], scene.vol_color_lut[0],
-        scene.vol_opacity_lut[0],
-        axis=int(axis), flip=bool(flip), step=float(scene.vol_step[0]),
-        base_step=float(min(spacing)), low=low, high=high,
-        origin=tuple(origin), spacing=tuple(spacing),
-        isovalues=tuple(float(x) for x in _per_volume(scene.vol_isovalues,
-                                                      0)),
-        slices=tuple(tuple(float(x) for x in pl)
-                     for pl in _per_volume(scene.vol_slices, 0)),
-        subgrids=_per_volume(scene.vol_subgrids, 0),
-        impl="plain" if use_reference else impl,
-        film_width=width if n == width * height else None)
+    with span("volume.march_slice"):
+        color, w, _flags = sm.slice_march(
+            o_obj, d_obj, active, rays.color, rays.w,
+            scene.vol_samples[0], scene.vol_color_lut[0],
+            scene.vol_opacity_lut[0],
+            axis=int(axis), flip=bool(flip), step=float(scene.vol_step[0]),
+            base_step=float(min(spacing)), low=low, high=high,
+            origin=tuple(origin), spacing=tuple(spacing),
+            isovalues=tuple(float(x) for x in _per_volume(scene.vol_isovalues,
+                                                          0)),
+            slices=tuple(tuple(float(x) for x in pl)
+                         for pl in _per_volume(scene.vol_slices, 0)),
+            subgrids=_per_volume(scene.vol_subgrids, 0),
+            impl="plain" if use_reference else impl,
+            film_width=width if n == width * height else None)
 
     # single brick: BOUNDARY rays have nowhere to requeue -> EXTERNAL ->
     # every primary deposits color*w (shuffle_volume's retirement rule)
@@ -351,42 +402,50 @@ def slice_axes_for(scene: VolumeSceneData, directions) -> tuple:
     device uses it)."""
     if not scene.vol_meta:
         return ()
-    iv = scene.inst_vol.cpu().numpy()
+    iv = _host(scene.inst_vol)
     minv = scene.inst_minv
     if minv.dim() == 4:                    # stacked: (n_dev, I, 4, 4)
         minv = minv[0]
         uses = [(iv == v).any(axis=0) for v in range(scene.num_volumes)]
     else:
         uses = [iv == v for v in range(scene.num_volumes)]
+    gated = [v for v in range(scene.num_volumes)
+             if not _has_features(scene, v) or _features_on_slice_ok(scene, v)]
+    used = sorted({int(i) for v in gated for i in np.nonzero(uses[v])[0]})
+    # every instance's reductions in one read; each volume's verdict from
+    # the rows of its instances
+    stats = dict(zip(used, _gate_stats([minv[i] for i in used], directions)))
     out = []
     for v in range(scene.num_volumes):
-        if _has_features(scene, v) and not _features_on_slice_ok(scene, v):
-            out.append(None)
-            continue
-        minvs = [minv[i] for i in np.nonzero(uses[v])[0]]
-        ok, axis, flip = _slice_gate(minvs, directions) if minvs \
-            else (False, 0, False)
+        rows = [stats[int(i)] for i in np.nonzero(uses[v])[0]] \
+            if v in gated else []
+        ok, axis, flip = _gate_verdict(rows) if rows else (False, 0, False)
         out.append((axis, flip) if ok else None)
     return tuple(out)
 
 
+@spanned("volume.frame")
 def trace_volume(scene: VolumeSceneData, arena: RayArena, width: int,
                  height: int, max_rounds: int = 64,
                  unroll: bool = False, slice_axes: tuple = (),
                  impl=None) -> torch.Tensor:
     """The wavefront volume tracer: filter, then rounds of march_round and
-    shuffle_volume until no ray is queued (one host sync per round asks).
+    shuffle_volume until no ray is queued (one host read per round asks,
+    and names the bricks that hold a queued ray: only they are marched).
     unroll=True is the gradient path: exactly max_rounds rounds, the gather
     march without early exit, no data-dependent control flow."""
     fb = image_lib.new_framebuffer(width, height, arena.origin.device)
     arena = filter_initial(scene, arena)
     for _ in range(max_rounds):
-        if not unroll and not bool(
-                (arena.active & (arena.inst >= 0)).any()):
-            break
-        # the arena's lanes are the camera's, in lane order (make_arena)
-        arena = march_round(scene, arena, differentiable=unroll,
-                            slice_axes=slice_axes, impl=impl,
-                            film_width=width)
-        arena, fb = shuffle_volume(scene, arena, fb)
+        volumes = None
+        if not unroll:
+            queued, volumes = _queued_volumes(scene, arena)
+            if not queued:
+                break
+        with span("volume.round"):
+            # the arena's lanes are the camera's, in lane order (make_arena)
+            arena = march_round(scene, arena, differentiable=unroll,
+                                slice_axes=slice_axes, impl=impl,
+                                film_width=width, volumes=volumes)
+            arena, fb = shuffle_volume(scene, arena, fb)
     return fb
