@@ -6,9 +6,11 @@ every one of those entry points exists here with the same name, argument
 order and semantics (cited per function). State lives in the RenderContext
 scene database; `render()` compiles it into tensors on the card and runs
 the requested scheduler over the layout's members (render/renderer.py),
-reusing the last surface build while the database's scene is unchanged.
-The mesh functions and addInstance copy the arrays they are handed (as
-Mesh.cpp's push_back does), so a caller may reuse its buffer.
+reusing the last surface or volume build while the database's scene is
+unchanged.
+The mesh functions, addInstance, addVolumeSamples and addAmrSubgrid copy
+the arrays they are handed (as Mesh.cpp's push_back does), so a caller may
+reuse its buffer; a volume's copies are read-only.
 
 Differences by design:
   - no MPI: `gvtsync()` is a replication no-op (every process builds the
@@ -214,13 +216,19 @@ def addVolumeTransferFunctions(name: str, colortfname: str,
                                              low, high)
 
 
+def _owned(values) -> np.ndarray:
+    """A read-only float32 copy of `values`: the volume's own (see
+    scene/volume.py's editing contract)."""
+    out = np.array(values, np.float32)
+    out.flags.writeable = False
+    return out
+
+
 def addVolumeSamples(name: str, samples, counts, origin, deltas,
                      samplingrate: float, bounds=None) -> None:
     node = _db().find(name)
-    vol = Volume.from_flat(np.asarray(samples, np.float32),
-                           np.asarray(counts, np.int64),
-                           np.asarray(origin, np.float32),
-                           np.asarray(deltas, np.float32),
+    vol = Volume.from_flat(_owned(samples), np.asarray(counts, np.int64),
+                           _owned(origin), _owned(deltas),
                            float(samplingrate), tf=node.get("tf"))
     node["ptr"] = vol
     node["bbox"] = (vol.bounds_min, vol.bounds_max)
@@ -229,11 +237,9 @@ def addVolumeSamples(name: str, samples, counts, origin, deltas,
 def addAmrSubgrid(name: str, gridid: int, level: int, samples, counts,
                   origin, deltas) -> None:
     node = _db().find(name)
-    sub = Volume.from_flat(np.asarray(samples, np.float32),
-                           np.asarray(counts, np.int64),
-                           np.asarray(origin, np.float32),
-                           np.asarray(deltas, np.float32),
-                           1.0, tf=node.get("tf"))
+    sub = Volume.from_flat(_owned(samples), np.asarray(counts, np.int64),
+                           _owned(origin), _owned(deltas), 1.0,
+                           tf=node.get("tf"))
     sub.level = level
     node["subgrids"].append((gridid, level, sub))
 

@@ -18,7 +18,8 @@ import numpy as np
 from gravit_tpu_torch.scene.material import Material
 
 
-# one clock for every edit of every mesh: a later edit reads a larger stamp
+# one clock for every edit of every mesh and volume (scene/volume.py): a
+# later edit reads a larger stamp
 _CLOCK = itertools.count(1)
 
 _LIST_FIELDS = ("vertices", "faces", "normals", "face_normals",

@@ -15,12 +15,28 @@ from typing import List, Optional
 
 import numpy as np
 
+from gravit_tpu_torch.scene.mesh import _CLOCK, _EditedList
 from gravit_tpu_torch.scene.transfer import TransferFunction
 
 
 @dataclasses.dataclass
 class Volume:
-    """One structured brick (a *domain* in GraviT terms)."""
+    """One structured brick (a *domain* in GraviT terms).
+
+    The editing contract, as Mesh's (scene/mesh.py), on the same edit
+    clock: `revision` grows with every edit of the volume, and the facade
+    uploads a volume's bricks again only when it grows (render/
+    renderer.py). An edit is an assignment to a field or a change through
+    `subgrids` (append, extend, +=, item assignment, del, ...). The api
+    copies the samples, origin and spacing it is handed and makes the
+    copies read-only (api.addVolumeSamples, api.addAmrSubgrid), so a caller
+    may reuse its buffer and a write into an api volume's arrays raises.
+    Not seen, and so not allowed once the volume has been rendered: writing
+    into the arrays of a Volume built directly; assign a new array instead.
+    The facade keys the transfer function, the isovalues and the slices by
+    their values too, so editing those in place is seen. Counts, bounds,
+    step size and max steps are derived from the fields and are no edit.
+    """
 
     samples: np.ndarray            # (nz, ny, nx) float32  [z-major numpy view]
     origin: np.ndarray             # (3,)
@@ -34,6 +50,19 @@ class Volume:
     # hardcoded Ka/Kd headlight as in the OSPRay adapter)
     isovalues: tuple = ()
     slices: tuple = ()  # plane equations (a, b, c, d)
+
+    def __setattr__(self, name, value) -> None:
+        if name == "subgrids" and not isinstance(value, _EditedList):
+            value = _EditedList(value)
+        object.__setattr__(self, name, value)
+        object.__setattr__(self, "_stamp", next(_CLOCK))
+
+    @property
+    def revision(self) -> int:
+        """The clock's stamp of the volume's latest edit: equal readings
+        mean no edit in between."""
+        d = self.__dict__
+        return max(d["_stamp"], d["subgrids"].stamp)
 
     @classmethod
     def from_flat(cls, flat: np.ndarray, counts, origin, spacing,

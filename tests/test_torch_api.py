@@ -288,7 +288,10 @@ def test_vol_app_and_amr_app_build_scene(sched):
     assert amr_app.build_scene(SCHEDULES[sched], wsize=(16, 16),
                                device="cpu") == 1
     api.render("amr")
-    vol = api._db().find("amrvol0")["ptr"]
+    # the facade attaches the node's subgrids to a copy of its Volume and
+    # writes nothing into the database's
+    assert api._db().find("amrvol0")["ptr"].subgrids == []
+    (vol,), _ = Renderer()._volume_scene(RenderContext.instance())
     assert len(vol.subgrids) == 1 and vol.subgrids[0].level == 1
     cam = Renderer()._camera(RenderContext.instance(), "conecam", "conefilm")
     fb = frame("amr")

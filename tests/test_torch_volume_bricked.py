@@ -210,7 +210,18 @@ def _tree(spans):
     return names, parent
 
 
+def _volume_build_span(spans, names, parent) -> list:
+    """The names of the spans inside the one `facade.volume_build` span of
+    a render, which lies in `facade.render`."""
+    builds = [i for i, n in enumerate(names) if n == "facade.volume_build"]
+    assert len(builds) == 1                   # the database read and build
+    assert parent(builds[0]) == "facade.render"
+    return [names[i] for i, s in enumerate(spans) if s.parent == builds[0]]
+
+
 def test_api_frame_span_tree(field):
+    """The first render's tree, whose one `facade.volume_build` span holds
+    the volume scene cache's miss; the next render's holds its hit."""
     api_scene(field)
     with timing.recording() as rec:
         api_frame(orbit(field, SEEDS[1]).pose(0))
@@ -219,9 +230,8 @@ def test_api_frame_span_tree(field):
     names, parent = _tree(spans)
     assert names[0] == "facade.render" and spans[0].parent is None
     assert all(s.root == rec.since for s in spans)
-    builds = [i for i, n in enumerate(names) if n == "facade.volume_build"]
-    assert len(builds) == 2                   # the database read, the build
-    assert all(parent(i) == "facade.render" for i in builds)
+    assert _volume_build_span(spans, names, parent) == [
+        "facade.volume_scene_build"]
     frames = [i for i, n in enumerate(names) if n == "volume.frame"]
     assert len(frames) == 1 and parent(frames[0]) == "facade.render"
     rounds = [i for i, n in enumerate(names) if n == "volume.round"]
@@ -248,6 +258,14 @@ def test_api_frame_span_tree(field):
     # reductions at once) and one round test more than there are rounds
     assert len(syncs) == 2 + len(rounds) + 1
     assert all(s.end_ns >= s.start_ns > 0 for s in spans)
+    timing.clear()
+    with timing.recording() as rec:
+        api_frame(orbit(field, SEEDS[1]).pose(1))
+    spans = rec.spans()
+    names, parent = _tree(spans)
+    assert _volume_build_span(spans, names, parent) == [
+        "facade.volume_scene_reused"]
+    assert names.count("volume.frame") == 1
 
 
 def test_a_pose_outside_the_gate_marches_the_gather_engine(field):
