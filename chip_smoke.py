@@ -1501,7 +1501,7 @@ def sched_phases(dev, card: str, film: int = 512) -> dict:
         padded_mesh_slots=[int((a.mesh_root < 0).sum())
                            for a in sr.host_accels])
     holds.update(hold_sched_launches(
-        "streamed", lambda: sr.render(point.camera), "_round_step",
+        "streamed", lambda: sr.render(point.camera), "trace_round",
         lambda call, acc: "group",
         {("group", "closest"): "a group's round: blocks of its 3 meshes",
          ("group", "any_hit"): "a group's round: shadow blocks"}))
@@ -2353,7 +2353,7 @@ def capture_member_slices(fn, members: int) -> tuple:
     ran. A round calls march_round once per member, in member order."""
     seen, state = [], {"march": -1, "exchanged_after": []}
     orig_m, orig_k, orig_x = vt.march_round, sm._run_kernel, \
-        vd._merge_incoming
+        ds._merge_incoming
 
     def march(*args, **kw):
         state["march"] += 1
@@ -2372,11 +2372,11 @@ def capture_member_slices(fn, members: int) -> tuple:
             state["exchanged_after"].append(rnd)
         return orig_x(*args, **kw)
 
-    vt.march_round, sm._run_kernel, vd._merge_incoming = march, kernel, merge
+    vt.march_round, sm._run_kernel, ds._merge_incoming = march, kernel, merge
     try:
         out = fn()
     finally:
-        vt.march_round, sm._run_kernel, vd._merge_incoming = (
+        vt.march_round, sm._run_kernel, ds._merge_incoming = (
             orig_m, orig_k, orig_x)
     torch.cuda.synchronize()
     return out, seen, state["exchanged_after"]

@@ -42,13 +42,12 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
-from gravit_tpu_torch.accel.scene_accel import SceneBVH, build_scene_bvh
+from gravit_tpu_torch.accel.scene_accel import build_scene_bvh
 from gravit_tpu_torch.core.context import RenderContext
 from gravit_tpu_torch.core.timing import span, spanned
 from gravit_tpu_torch.device import resolve_device
 from gravit_tpu_torch.parallel import global_mesh
-from gravit_tpu_torch.render.scene_build import (Instance, SceneData,
-                                                 build_scene)
+from gravit_tpu_torch.render.scene_build import Instance, build_scene
 from gravit_tpu_torch.render.tracer import (MAX_FAST_DEPTH, make_arena,
                                             trace_image, trace_image_fast,
                                             trace_image_fast_multi)
@@ -64,7 +63,8 @@ from gravit_tpu_torch.scene.light import (Light, ambient_light, area_light,
                                           point_light)
 from gravit_tpu_torch.scene.mesh import CompiledMesh
 from gravit_tpu_torch.scene.volume import Volume
-from gravit_tpu_torch.schedule.domain_sched import DomainRenderer
+from gravit_tpu_torch.schedule.domain_sched import (DomainRenderer, Regrow,
+                                                    first_cap)
 from gravit_tpu_torch.schedule.volume_domain import (partition_volume_scene,
                                                      trace_volume_domain)
 
@@ -75,6 +75,14 @@ DOMAIN_SCHEDULES = (1, 3)               # Domain, AsyncDomain
 # meshes below this many triangles take the brute intersector
 # (renderer.py:235-242)
 BVH_MIN_TRIANGLES = 512
+
+
+def _gate_depth(camera: PerspectiveCamera) -> None:
+    """The surface arms' gate, before any build: max_depth 0 raises here
+    instead of reaching the reference's IndexError."""
+    if camera.max_depth < 1:
+        raise NotImplementedError(
+            f"max_depth {camera.max_depth}: a frame needs max_depth >= 1")
 
 
 def build_surface(meshes: Sequence[CompiledMesh],
@@ -127,9 +135,7 @@ def render_surface(meshes: Sequence[CompiledMesh],
     forces the plain version on the card (comparisons only).
     """
     device = resolve_device(device)
-    if camera.max_depth < 1:
-        raise NotImplementedError(
-            f"max_depth {camera.max_depth}: a frame needs max_depth >= 1")
+    _gate_depth(camera)
     scene, accel = build_surface(meshes, instances, lights, device=device)
     return trace_surface(scene, accel, camera, device=device, impl=impl)
 
@@ -221,19 +227,20 @@ class SceneKey(NamedTuple):
                 and self.values == other.values)
 
 
-class SurfaceBuild(NamedTuple):
-    """A single-device surface build and the key it was made from."""
+class Build(NamedTuple):
+    """A single-device build and the key it was made from."""
 
     key: SceneKey
-    scene: SceneData
-    accel: Optional[SceneBVH]
+    value: object
 
 
-class VolumeBuild(NamedTuple):
-    """A single-device volume build and the key it was made from."""
-
-    key: SceneKey
-    scene: VolumeSceneData
+# the Renderer's kept builds: the attribute that holds each, and the spans
+# of its reuse and of its build
+KEPT_BUILDS = {
+    "scene_build": ("facade.scene_reused", "facade.scene_build"),
+    "volume_build": ("facade.volume_scene_reused",
+                     "facade.volume_scene_build"),
+}
 
 
 class Renderer:
@@ -246,8 +253,9 @@ class Renderer:
     multi-member arms.
 
     The single-device surface and volume arms keep their last build
-    (`scene_build`, `volume_build`: one entry each per Renderer) and reuse
-    it while the database's SceneKey holds."""
+    (`scene_build`: the scene and its BVH, `volume_build`: the volume
+    scene; one Build each per Renderer) and reuse it while the database's
+    SceneKey holds."""
 
     _instance: "Optional[Renderer]" = None
 
@@ -255,8 +263,8 @@ class Renderer:
         self._fb = {}
         self._films = {}
         self.mesh = mesh
-        self.scene_build: Optional[SurfaceBuild] = None
-        self.volume_build: Optional[VolumeBuild] = None
+        self.scene_build: Optional[Build] = None
+        self.volume_build: Optional[Build] = None
 
     @classmethod
     def instance(cls) -> "Renderer":
@@ -268,8 +276,8 @@ class Renderer:
     def reset(cls) -> None:
         """Drop the process's Renderer and free its kept builds."""
         if cls._instance is not None:
-            cls._instance.scene_build = None
-            cls._instance.volume_build = None
+            for slot in KEPT_BUILDS:
+                setattr(cls._instance, slot, None)
         cls._instance = None
 
     # -- the layout and the scene, from the database ----------------------
@@ -317,22 +325,21 @@ class Renderer:
                      for n in db.group("Instances").children.values()]
         return meshes, instances, self._lights(db)
 
-    def _surface_build(self, db: RenderContext, device):
-        """(scene, accel) of the database's surfaces on `device`: the kept
-        build while its key holds (a `facade.scene_reused` span), else a
-        new one that replaces it (a `facade.scene_build` span around the
-        compile and both builds)."""
+    def _kept(self, slot: str, db: RenderContext, device, make):
+        """The build kept in `slot` (KEPT_BUILDS) while the database's key
+        on `device` holds (in the slot's reuse span), else make()'s, which
+        replaces it (in the slot's build span)."""
         key = SceneKey.of(db, device)
-        if self.scene_build is not None and self.scene_build.key.same(key):
-            with span("facade.scene_reused"):
-                return self.scene_build.scene, self.scene_build.accel
-        self.scene_build = None         # freed before its replacement is made
-        with span("facade.scene_build"):
-            meshes, instances, lights = self._surface_scene(db)
-            scene, accel = build_surface(meshes, instances, lights,
-                                         device=device)
-        self.scene_build = SurfaceBuild(key, scene, accel)
-        return scene, accel
+        reused, built = KEPT_BUILDS[slot]
+        kept = getattr(self, slot)
+        if kept is not None and kept.key.same(key):
+            with span(reused):
+                return kept.value
+        setattr(self, slot, None)       # freed before its replacement is made
+        with span(built):
+            value = make()
+        setattr(self, slot, Build(key, value))
+        return value
 
     def _volume_scene(self, db: RenderContext):
         """(volumes, instances) of the database's volume nodes: each Volume
@@ -352,20 +359,6 @@ class Renderer:
                      for n in db.group("Instances").children.values()]
         return volumes, instances
 
-    def _volume_build(self, db: RenderContext, volumes, instances, device):
-        """The scene of the database's volumes on `device`: the kept build
-        while its key holds (a `facade.volume_scene_reused` span), else a
-        new one that replaces it (a `facade.volume_scene_build` span)."""
-        key = SceneKey.of(db, device)
-        if self.volume_build is not None and self.volume_build.key.same(key):
-            with span("facade.volume_scene_reused"):
-                return self.volume_build.scene
-        self.volume_build = None        # freed before its replacement is made
-        with span("facade.volume_scene_build"):
-            scene = build_volume_scene(volumes, instances, device=device)
-        self.volume_build = VolumeBuild(key, scene)
-        return scene
-
     # -- rendering --------------------------------------------------------
 
     @spanned("facade.render")
@@ -373,7 +366,9 @@ class Renderer:
         """Build the named Scheduler's camera and scene and trace a frame
         (a `facade.render` span):
           volume, Domain/AsyncDomain schedule, more than one member, one
-            brick shape, more than one instance   trace_volume_domain
+            brick shape, more than one instance   trace_volume_domain, again
+                                                  at Regrow's capacity while
+                                                  it drops rays
           volume, otherwise                       trace_volume_scene of the
                                                   kept or a new build
         The volume arms read their bricks from the database in one
@@ -399,29 +394,39 @@ class Renderer:
                 by_domain = (domain and len(instances) > 1 and len(
                     {tuple(v.samples.shape) for v in volumes}) == 1)
                 if not by_domain:
-                    scene = self._volume_build(db, volumes, instances, device)
+                    scene = self._kept("volume_build", db, device,
+                                       lambda: build_volume_scene(
+                                           volumes, instances, device=device))
             if by_domain:
                 stacked, owners = partition_volume_scene(
                     volumes, instances, n_dev, device=device)
                 rays = camera.generate_rays(device, volume=True)
-                fb = trace_volume_domain(
-                    stacked, owners, make_arena(rays, 0), camera.film_width,
-                    camera.film_height, mesh, axis,
-                    slice_axes=slice_axes_for(stacked, rays.direction))
+                arena = make_arena(rays, 0)
+                axes = slice_axes_for(stacked, rays.direction)
+                grow = Regrow(n_dev, first_cap(arena.capacity, n_dev))
+                while True:
+                    fb, (drops, peak) = trace_volume_domain(
+                        stacked, owners, arena, camera.film_width,
+                        camera.film_height, mesh, axis,
+                        exchange_cap=grow.cap, return_stats="peak",
+                        slice_axes=axes, local_slack=grow.slack)
+                    if not grow.retry(drops, peak, arena.capacity):
+                        break
             else:
                 fb = trace_volume_scene(scene, camera, device=device)
             self._fb[name] = fb
             return
 
-        if camera.max_depth < 1:
-            raise NotImplementedError(
-                f"max_depth {camera.max_depth}: a frame needs max_depth >= 1")
+        _gate_depth(camera)
         if domain:
             meshes, instances, lights = self._surface_scene(db)
             dr = DomainRenderer.build(meshes, instances, lights, mesh, axis)
             fb = dr.render(camera)
         else:
-            scene, accel = self._surface_build(db, device)
+            scene, accel = self._kept(
+                "scene_build", db, device,
+                lambda: build_surface(*self._surface_scene(db),
+                                      device=device))
             fb = trace_surface(scene, accel, camera, device=device)
         self._fb[name] = fb
 

@@ -705,35 +705,6 @@ def trace_image(scene: SceneData, arena: RayArena, width: int, height: int,
     return fb
 
 
-def _round_step(scene: SceneData, arena: RayArena, fb: torch.Tensor,
-                round_idx: int, accel=None, impl=None):
-    arena, fb = trace_round(scene, arena, fb, round_idx,
-                            _choose_tile(scene.num_triangles), accel=accel,
-                            impl=impl)
-    live = (arena.active & (arena.inst >= 0)).sum()
-    return arena, fb, live
-
-
-def _initial_shuffle(scene: SceneData, arena: RayArena, width: int,
-                     height: int):
-    fb = image_lib.new_framebuffer(width, height, arena.origin.device)
-    return shuffle(scene, arena, fb)
-
-
-@spanned("tracer.frame")
-def trace_image_stepped(scene: SceneData, arena: RayArena, width: int,
-                        height: int, max_rounds: int = 64, accel=None,
-                        impl=None) -> torch.Tensor:
-    """trace_image with the count of live lanes read on the host after
-    each round (each round a `tracer.round` span). Same results."""
-    arena, fb = _initial_shuffle(scene, arena, width, height)
-    for r in range(max_rounds):
-        arena, fb, live = _round_step(scene, arena, fb, r, accel, impl)
-        if _read(live) == 0:
-            break
-    return fb
-
-
 # ---------------------------------------------------------------------------
 # the megapasses
 

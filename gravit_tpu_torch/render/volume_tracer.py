@@ -92,25 +92,33 @@ def _per_volume(field: tuple, v: int) -> tuple:
     return field[v] if v < len(field) else ()
 
 
-def _queued_volumes(scene: VolumeSceneData, arena: RayArena) -> tuple:
-    """(any ray queued, the volumes holding a queued ray), in one host
-    read: the round test."""
+def held_volumes(scene: VolumeSceneData, arena: RayArena) -> torch.Tensor:
+    """(num_volumes,) bool, where the arena lives: the scene's bricks that
+    hold a queued ray (a ray whose instance has no local brick, inst_vol
+    -1 under the domain scheduler, counts for none)."""
     queued = arena.active & (arena.inst >= 0)
     safe_inst = torch.clamp(arena.inst, 0, scene.num_instances - 1).long()
     vol_of_ray = torch.where(queued, scene.inst_vol[safe_inst], -1)
     ids = torch.arange(scene.num_volumes, device=queued.device)
-    held = (vol_of_ray[None, :] == ids[:, None]).any(dim=1)
-    read = _host(torch.cat([queued.any()[None], held]))
-    return bool(read[0]), tuple(int(v) for v in np.nonzero(read[1:])[0])
+    return (vol_of_ray[None, :] == ids[:, None]).any(dim=1)
+
+
+def read_round(go: torch.Tensor, held: list) -> tuple:
+    """The round test in one host read: (whether the bool scalar `go`
+    holds, per held_volumes entry of `held` (of one length) the volumes it
+    names, the bricks march_round is to march)."""
+    read = _host(torch.cat([go[None], *held]))
+    return bool(read[0]), [tuple(int(v) for v in np.nonzero(row)[0])
+                           for row in read[1:].reshape(len(held), -1)]
 
 
 def march_round(scene: VolumeSceneData, arena: RayArena,
                 differentiable: bool = False, slice_axes: tuple = (),
-                impl=None, film_width=None, volumes=None):
-    """Phase 1: march all queued rays through their bricks (one pass per
-    volume; rays of other volumes are masked). `volumes`, if given, names
-    the volumes that hold a queued ray (_queued_volumes); the others' passes
-    would change nothing and are left out.
+                impl=None, film_width=None, *, volumes):
+    """Phase 1: march all queued rays through their bricks, one pass per
+    volume named in `volumes`; rays of other volumes are masked. Callers
+    name the volumes that hold a queued ray (held_volumes, read_round), or
+    every volume; another volume's pass would change no lane.
 
     Rays whose instance has no LOCAL brick data (inst_vol == -1 under the
     domain scheduler) park untouched.
@@ -132,7 +140,7 @@ def march_round(scene: VolumeSceneData, arena: RayArena,
     d_obj = dot3(m3, arena.direction[:, None, :])
 
     color, w, depth = arena.color, arena.w, arena.depth
-    for v in range(scene.num_volumes) if volumes is None else volumes:
+    for v in volumes:
         mask = queued & (vol_of_ray == v)
         use_slice = (not differentiable and v < len(slice_axes)
                      and slice_axes[v] is not None
@@ -315,8 +323,7 @@ def _features_on_slice_ok(scene: VolumeSceneData, v: int) -> bool:
 @spanned("volume.frame")
 def trace_volume_fast(scene: VolumeSceneData, rays: RayArena, width: int,
                       height: int, axis: int | None = None,
-                      flip: bool | None = None,
-                      use_reference: bool = False, impl=None) -> torch.Tensor:
+                      flip: bool | None = None, impl=None) -> torch.Tensor:
     """Single-brick volume megapass: the whole frame in ONE slice-march
     launch (ops/slice_march.py), the role ospTraceRays/GregSpray plays for
     the reference (OSPRayAdapter.cpp:301).
@@ -330,9 +337,7 @@ def trace_volume_fast(scene: VolumeSceneData, rays: RayArena, width: int,
     `rays` is the raw camera wavefront (make_arena not needed). axis/flip
     override the dominant-axis choice (computed from the mean object-space
     ray direction otherwise; pass them explicitly in frame loops).
-    impl="plain" runs the plain version (differentiable). use_reference=True
-    is the JAX package's spelling of the same choice, kept so that a call
-    written for either package reads alike; it selects nothing else.
+    impl="plain" runs the plain version (differentiable).
     """
     if scene.num_volumes != 1 or scene.num_instances != 1:
         raise ValueError("trace_volume_fast takes one volume in one instance")
@@ -374,7 +379,7 @@ def trace_volume_fast(scene: VolumeSceneData, rays: RayArena, width: int,
             slices=tuple(tuple(float(x) for x in pl)
                          for pl in _per_volume(scene.vol_slices, 0)),
             subgrids=_per_volume(scene.vol_subgrids, 0),
-            impl="plain" if use_reference else impl,
+            impl=impl,
             film_width=width if n == width * height else None)
 
     # single brick: BOUNDARY rays have nowhere to requeue -> EXTERNAL ->
@@ -437,10 +442,11 @@ def trace_volume(scene: VolumeSceneData, arena: RayArena, width: int,
     fb = image_lib.new_framebuffer(width, height, arena.origin.device)
     arena = filter_initial(scene, arena)
     for _ in range(max_rounds):
-        volumes = None
+        volumes = range(scene.num_volumes)
         if not unroll:
-            queued, volumes = _queued_volumes(scene, arena)
-            if not queued:
+            held = held_volumes(scene, arena)
+            go, (volumes,) = read_round(held.any(), [held])
+            if not go:
                 break
         with span("volume.round"):
             # the arena's lanes are the camera's, in lane order (make_arena)

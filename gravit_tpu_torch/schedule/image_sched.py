@@ -215,7 +215,8 @@ class StreamedImageRenderer:
                            self.lights_count)
         w, h = camera.film_width, camera.film_height
         scene0, _ = self._use(0)
-        arena, fb = tracer_lib._initial_shuffle(scene0, arena, w, h)
+        arena, fb = tracer_lib.shuffle(
+            scene0, arena, image_lib.new_framebuffer(w, h, self.device))
         for r in range(max_rounds):
             live = arena.active & (arena.inst >= 0)
             counts = torch.zeros((self.num_groups,), dtype=torch.int64,
@@ -232,8 +233,9 @@ class StreamedImageRenderer:
                                      and counts[ranked[1]] > 0) else g
             self._evict_except({g, nxt})
             self._fetch(nxt)
-            arena, fb, _ = tracer_lib._round_step(scene_g, arena, fb, r,
-                                                  accel=accel_g)
+            arena, fb = tracer_lib.trace_round(
+                scene_g, arena, fb, r,
+                tracer_lib._choose_tile(scene_g.num_triangles), accel=accel_g)
             self.stats["rounds"] += 1
         return fb
 

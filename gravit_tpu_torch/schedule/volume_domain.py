@@ -7,14 +7,18 @@ rays march front to back through whichever brick they are in and carry
 (rgb, opacity) across the wire, so depth order is automatic; the reference
 needs IceT BLEND only to merge FINISHED pixels, which here is the final
 all-reduce (a ray retires on exactly one member). Brick-to-member placement
-is round-robin (reference Locations semantics); migration reuses the
-surface domain scheduler's packed all_to_all (domain_sched.py).
+is round-robin (reference Locations semantics). The claim, the exchange
+and the regrow rule are the surface domain scheduler's (domain_sched.py:
+claim, exchange, Regrow); this module keeps the volume's own steps: the
+first queueing, the owner rule, a member's round and the composite.
 
 Differences from the JAX package, by design:
   * Written once against the group (parallel/), as domain_sched.py: the
-    compiled while_loop is a host loop over rounds that reads two
-    all-reduced counts a round (the live rays before it, the rays to send
-    after it), and skips the exchange when no member sends.
+    compiled while_loop is a host loop over rounds with two host reads a
+    round: before it, the all-reduced count of live rays together with
+    each local member's bricks that hold a queued ray (only they are
+    marched: a pass whose mask is empty changes no lane); after it, the
+    rays to send. The exchange is skipped when no member sends.
   * `slice_interpret` (the JAX Pallas interpret switch) has no
     counterpart: on the card the slice engine launches its kernels (K4, or
     K5 for a brick over SLAB_BYTES), on the CPU it runs their plain
@@ -37,9 +41,8 @@ from gravit_tpu_torch.device import resolve_device
 from gravit_tpu_torch.render import volume_tracer
 from gravit_tpu_torch.render.volume_scene import (VolumeSceneData,
                                                   build_volume_scene)
-from gravit_tpu_torch.schedule.domain_sched import (_compact_arena,
-                                                    _merge_incoming,
-                                                    _np, _pack_exchange,
+from gravit_tpu_torch.schedule.domain_sched import (claim, exchange,
+                                                    first_cap, local_width,
                                                     round_robin_owners,
                                                     shard, tree_map)
 from gravit_tpu_torch.scene import image as image_lib
@@ -64,7 +67,7 @@ def partition_volume_scene(volumes: Sequence[Volume],
     """
     if owners is None:
         owners = round_robin_owners(len(instances), n_dev)
-    owners = _np(owners)
+    owners = torch.as_tensor(owners).cpu().numpy()
     shapes = {tuple(v.samples.shape) for v in volumes}
     if len(shapes) != 1:
         raise ValueError(f"bricks must share a shape, got {shapes}")
@@ -104,11 +107,13 @@ def trace_volume_domain(scene_stacked: VolumeSceneData, owners,
                         arena: RayArena, width: int, height: int, mesh,
                         axis: str = "domains", max_rounds: int = 32,
                         exchange_cap: int | None = None,
-                        return_stats: bool = False, slice_axes: tuple = (),
+                        return_stats=False, slice_axes: tuple = (),
                         local_slack: float = 2.0, impl=None):
     """Run the volume domain schedule over the mesh's `axis` group;
-    returns the clamped frame, and with return_stats (frame, drops): the
-    summed count of rays lost to exchange or compaction overflow.
+    returns the clamped frame. return_stats: also the summed count of rays
+    lost to exchange or compaction overflow; "peak" gives instead the tuple
+    (drops, the largest per-destination demand of any round), as
+    trace_domain's, for Regrow.
 
     arena: the FULL camera wavefront (every member filters it, claims the
     rays whose first brick it owns and compacts them to ~(C / n_dev) *
@@ -122,9 +127,8 @@ def trace_volume_domain(scene_stacked: VolumeSceneData, owners,
     dom = mesh.groups[axis]
     dev = dom.device
     n_dev = dom.size
-    cap = exchange_cap or max(1024, arena.capacity // n_dev)
-    want = -(-int(arena.capacity * local_slack) // n_dev)
-    c_local = min(arena.capacity, max(1024, -(-want // 1024) * 1024))
+    cap = exchange_cap or first_cap(arena.capacity, n_dev)
+    c_local = local_width(arena.capacity, n_dev, local_slack)
     owners = torch.as_tensor(owners, device=dev).long()
     n_inst = owners.shape[0]
 
@@ -134,50 +138,46 @@ def trace_volume_domain(scene_stacked: VolumeSceneData, owners,
     def queued(a):
         return a.active & (a.inst >= 0)
 
-    scene, state = {}, {}
+    scenes, arenas, fbs, drops = [], [], [], []
     for d in dom.local:
-        scene[d] = shard(scene_stacked, d, dev)
-        # the generic first queueing, keep the rays whose first brick this
-        # member owns, then compact to the local working width
-        a = volume_tracer.filter_initial(scene[d], arena)
-        a = a.replace(active=a.active & ((a.inst < 0) | (owner_of(a.inst)
-                                                           == d)))
-        a, d_claim = _compact_arena(a, c_local)
-        state[d] = [a, image_lib.new_framebuffer(width, height, dev),
-                    d_claim]
+        scenes.append(shard(scene_stacked, d, dev))
+        # the generic first queueing, then the rays whose first brick this
+        # member owns
+        a = volume_tracer.filter_initial(scenes[-1], arena)
+        a, d_claim = claim(a, owner_of(a.inst) == d, c_local)
+        arenas.append(a)
+        fbs.append(image_lib.new_framebuffer(width, height, dev))
+        drops.append(d_claim)
+    peaks = [torch.zeros((), dtype=torch.int64, device=dev)] * len(arenas)
 
     for _ in range(max_rounds):
-        live = dom.all_reduce([queued(state[d][0]).sum()
-                               for d in dom.local])[0]
-        if int(live) == 0:
+        live = dom.all_reduce([queued(a).sum() for a in arenas])[0]
+        go, bricks = volume_tracer.read_round(live > 0, [
+            volume_tracer.held_volumes(sc, a)
+            for sc, a in zip(scenes, arenas)])
+        if not go:
             break
-        sends = {}
-        for d in dom.local:
-            a, fb, _ = state[d]
-            a = volume_tracer.march_round(scene[d], a, slice_axes=slice_axes,
-                                          impl=impl)
-            a, fb = volume_tracer.shuffle_volume(scene[d], a, fb)
-            state[d][:2] = a, fb
-            sends[d] = queued(a) & (owner_of(a.inst) != d)
-        n_send = dom.all_reduce([sends[d].sum() for d in dom.local])[0]
+        sends = []
+        for k, d in enumerate(dom.local):
+            a = volume_tracer.march_round(scenes[k], arenas[k],
+                                          slice_axes=slice_axes, impl=impl,
+                                          volumes=bricks[k])
+            arenas[k], fbs[k] = volume_tracer.shuffle_volume(scenes[k], a,
+                                                             fbs[k])
+            sends.append(queued(arenas[k]) & (owner_of(arenas[k].inst) != d))
+        n_send = dom.all_reduce([s.sum() for s in sends])[0]
         if int(n_send) == 0:
             continue            # no member has a migrant: skip the exchange
-        packs = []
-        for d in dom.local:
-            a = state[d][0]
-            dest = torch.where(sends[d], owner_of(a.inst), -1)
-            a, packed, d_pack, _ = _pack_exchange(a, dest, n_dev, cap)
-            state[d][0] = a
-            state[d][2] = state[d][2] + d_pack
-            packs.append(packed)
-        fields = {name: dom.all_to_all([getattr(p, name) for p in packs])
-                  for name in RayArena.__dataclass_fields__}
-        for k, d in enumerate(dom.local):
-            incoming = RayArena(**{n: v[k] for n, v in fields.items()})
-            state[d][0], d_merge = _merge_incoming(state[d][0], incoming)
-            state[d][2] = state[d][2] + d_merge
+        arenas, dropped, demand = exchange(
+            dom, arenas, [torch.where(s, owner_of(a.inst), -1)
+                          for s, a in zip(sends, arenas)], cap)
+        drops = [x + y for x, y in zip(drops, dropped)]
+        peaks = [torch.maximum(x, y) for x, y in zip(peaks, demand)]
 
-    fb = dom.all_reduce([state[d][1] for d in dom.local])[0]
-    drops = dom.all_reduce([state[d][2] for d in dom.local])[0]
-    fb = image_lib.clamp_rgb(fb)
-    return (fb, drops) if return_stats else fb
+    fb = image_lib.clamp_rgb(dom.all_reduce(fbs)[0])
+    if not return_stats:
+        return fb
+    stats = dom.all_reduce(drops)[0]
+    if return_stats == "peak":
+        stats = (stats, dom.all_reduce(peaks, "max")[0])
+    return fb, stats

@@ -40,7 +40,9 @@ from gravit_tpu_torch.render import renderer as rmod
 from gravit_tpu_torch.render.renderer import (Renderer, render_surface,
                                               render_volume)
 from gravit_tpu_torch.render.tracer import make_arena
-from gravit_tpu_torch.render.volume_tracer import slice_axes_for
+from gravit_tpu_torch.render.volume_scene import build_volume_scene
+from gravit_tpu_torch.render.volume_tracer import (filter_initial,
+                                                   slice_axes_for)
 from gravit_tpu_torch.schedule import volume_domain as vd
 from gravit_tpu_torch.scene.image import read_ppm, to_rgb8
 from gravit_tpu_torch.scene.volume import wavelet_volume
@@ -181,6 +183,53 @@ def test_api_volume_domain_equal_jax(gold, monkeypatch):
     assert torch.equal(fb, ref)
     assert float(fb[:, :3].sum()) > 0
     assert float(np.abs(fb.numpy() - gold["volume_domain"]).max()) < 1e-5
+
+
+def test_api_volume_domain_regrows_a_crowded_member():
+    """The volume Domain arm over 8 members, looking down the x axis at the
+    two x-bricks: brick 0 is the first brick of most of the 64^2 rays, more
+    than its member's compacted share (C / 8 * 2 = 1,024 lanes) holds. The
+    arm renders again at Regrow's slack and capacity until nothing drops:
+    the frame is the single-device render_volume's."""
+    bricks, _ = tp.bricked_wavelet(32)
+    eye, focus, film = (-60.0, 15.5, 15.5), (15.5, 15.5, 15.5), 64
+    api.gvtInit(mesh=members(8))
+    tp.api_volume_bricks(api, bricks, eye, focus, film, SCHEDULES["domain"])
+    cam = Renderer()._camera(RenderContext.instance(), "cam", "film")
+    eye4 = np.eye(4, dtype=np.float32)
+    instances = [(0, eye4), (1, eye4)]
+    scene = build_volume_scene(bricks, instances, device="cpu")
+    first = filter_initial(scene, make_arena(
+        cam.generate_rays("cpu", volume=True), 0))
+    assert int((first.active & (first.inst == 0)).sum()) >= 1536
+    api.render("vr")
+    fb = frame("vr")
+    single = render_volume(bricks, instances, cam, device="cpu")
+    assert float((fb - single).abs().max()) <= 1e-5
+    assert float(fb[:, :3].sum()) > 0
+
+
+def test_api_volume_domain_raises_after_max_grows(monkeypatch):
+    """A volume Domain frame that still drops rays after Regrow's three
+    grows raises (tests/test_torch_domain_sched.py::
+    test_render_raises_after_max_grows for the surface arm): every try
+    forced to an exchange capacity of one ray."""
+    bricks, _ = tp.bricked_wavelet(32)
+    api.gvtInit(mesh=members(8))
+    tp.api_volume_bricks(api, bricks, VD_CAM["eye"], VD_CAM["focus"],
+                         VD_CAM["film"], SCHEDULES["domain"])
+    tries, orig = [], rmod.trace_volume_domain
+
+    def spy(*args, **kw):
+        tries.append((kw["exchange_cap"], kw["local_slack"]))
+        kw["exchange_cap"] = 1
+        return orig(*args, **kw)
+
+    monkeypatch.setattr(rmod, "trace_volume_domain", spy)
+    with pytest.raises(RuntimeError, match="still dropping"):
+        api.render("vr")
+    # the capacity stops at the arena's 1,024 lanes, the slack at 8 members
+    assert tries == [(1024, 2.0), (1024, 4.0), (1024, 8.0), (1024, 8.0)]
 
 
 def test_member_count_from_the_layout(monkeypatch):

@@ -1,6 +1,6 @@
 """The port's multi-instance and looped surface tracers against the JAX
-package's, on the CPU: trace_image_fast_multi, trace_image,
-trace_image_stepped and render_surface on the cube row of
+package's, on the CPU: trace_image_fast_multi, trace_image and
+render_surface on the cube row of
 tests/test_fast_multi.py (point light; point + ambient; area + point),
 SimpleApp (tiled and untiled), a 64-instance scene on the instance tree, a
 looped depth-2 scene and a 9-mesh scene on the segment-aligned pack; the
@@ -170,8 +170,8 @@ def test_bvh_frames_match_jax(name):
 
 def test_looped_depth2_stepped_and_render_surface_match_jax():
     """SimpleApp at depth 2 (Russian roulette bounces across instances):
-    trace_image, trace_image_stepped (its rounds recorded as spans),
-    unroll=True and render_surface's looped branch."""
+    trace_image (its rounds recorded as spans), unroll=True and
+    render_surface's looped branch."""
     spec = chip_smoke.simple_app(32, 32, max_depth=2)
     jl, tl = both(spec, looped)
     tp.assert_multi_close(tl, jl, 32, 32)
@@ -179,8 +179,8 @@ def test_looped_depth2_stepped_and_render_surface_match_jax():
     scene = tp.port_scene(jscene)
     arena = tracer.make_arena(tp.port_rays(tp.jax_rays(spec.camera)), 1)
     with timing.recording() as rec:
-        stepped = tracer.trace_image_stepped(scene, arena, 32, 32)
-    assert torch.equal(stepped, torch.tensor(tl))
+        traced = tracer.trace_image(scene, arena, 32, 32)
+    assert torch.equal(traced, torch.tensor(tl))
     rounds = [s for s in rec.spans() if s.name == "tracer.round"]
     assert 3 <= len(rounds) < 64 and "tracer.round" in rec.report()
     unrolled = tracer.trace_image(scene, arena, 32, 32, max_rounds=20,

@@ -153,7 +153,8 @@ def queued_bricks_by_round(field, pose) -> list:
             return out
         out.append(set(scene.inst_vol[arena.inst[queued].long()].tolist()))
         arena = vt.march_round(scene, arena, slice_axes=axes,
-                               film_width=FILM)
+                               film_width=FILM,
+                               volumes=range(scene.num_volumes))
         arena, fb = vt.shuffle_volume(scene, arena, fb)
 
 

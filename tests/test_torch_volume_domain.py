@@ -33,6 +33,7 @@ import chip_smoke
 from gravit_tpu.render import volume_tracer as jvt
 from gravit_tpu.schedule import volume_domain as jvd
 
+from gravit_tpu_torch.core import timing
 from gravit_tpu_torch.ops import slice_march as sm
 from gravit_tpu_torch.parallel import global_mesh
 from gravit_tpu_torch.render import volume_tracer as vt
@@ -212,6 +213,42 @@ def test_slice_path_inside_domain_program(n_dev, monkeypatch):
     gather = vd.trace_volume_domain(stacked, owners, arena, FILM, FILM,
                                     mesh(n_dev), max_rounds=8)
     assert float((gather - fb)[:, :3].abs().max()) > 1e-4
+
+
+def test_members_march_only_bricks_holding_rays(monkeypatch):
+    """Over 4 members holding 2 bricks (members 2 and 3 hold a padded copy
+    of brick 0 and own no instance), each round's brick passes
+    (`volume.march_*` spans) number no more than the members holding a
+    queued ray of a local brick; the frame is the single-device one."""
+    bricks = chip_smoke.bricked_wavelet(N)
+    _, arena = wavefront()
+    stacked, owners = vd.partition_volume_scene(bricks, INSTANCES, 4,
+                                                device="cpu")
+    calls, orig = [], vt.march_round
+
+    def spy(scene, a, *args, **kw):
+        queued = a.active & (a.inst >= 0)
+        local = scene.inst_vol[a.inst.clamp(min=0).long()] >= 0
+        since = len(timing.recorded())
+        out = orig(scene, a, *args, **kw)
+        calls.append((bool((queued & local).any()), sum(
+            s.name.startswith("volume.march_")
+            for s in timing.recorded(since))))
+        return out
+
+    monkeypatch.setattr(vt, "march_round", spy)
+    with timing.recording():
+        fb = vd.trace_volume_domain(stacked, owners, arena, FILM, FILM,
+                                    mesh(4), max_rounds=8)
+    rounds = [calls[k:k + 4] for k in range(0, len(calls), 4)]
+    assert len(calls) % 4 == 0 and len(rounds) >= 2
+    for members in rounds:
+        assert sum(n for _, n in members) <= sum(h for h, _ in members)
+    assert sum(n for _, n in calls) > 0
+    single = vt.trace_volume(build_volume_scene(bricks, INSTANCES,
+                                                device="cpu"),
+                             arena, FILM, FILM, max_rounds=8)
+    assert float((fb - single)[:, :3].abs().max()) < 1e-5
 
 
 def test_exchange_overflow_counted():
