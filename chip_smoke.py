@@ -45,6 +45,23 @@ the instance tree and the segment-aligned pack):
                  (SimpleApp at depth 1 and 2, the area-light cube row, the
                  many-domain scene)
   time_launch / launch_shape / time_frame  for those launches and frames
+The closest-instance search (csrc/instance_slab.cu, after slice C):
+  hold_instance_slab  the kernel against its plain version, lane for lane
+                 (found, index and t_entry bits), on every search of
+                 SimpleApp's fast-multi frame (the full film and the
+                 compacted tails), of the train cell's looped forward (the
+                 2 x 1.25 arena, 655,360 lanes), of a gvt_vol frame (eight
+                 bricks of 257^3) and at ragged widths as column slices of
+                 a wider table; `_grad`: where autograd records, t_entry
+                 recomputed from the winner's box, bit-equal
+  frame_instance_slab  SimpleApp fast-multi and looped, and the gvt_vol
+                 frame, bit-equal to the same frame with every search on
+                 the plain version, one launch a search; the host's ms in
+                 the instance search (split_frame) with the kernel and
+                 with the plain version
+  time_instance_slab  a launch's CUDA-event and graph-replay ms at the full
+                 film and the train arena, against its byte bound
+                 (41 B a lane / 3.35 TB/s), and the plain version's ms
 The volume path (scenes: `make_volume_scene`, the volume bench configuration
 of bench_inner.py:208-229 on the procedural wavelet brick):
   hold_K4 x4     the whole-brick slice kernel vs its plain version on the
@@ -133,7 +150,8 @@ times, launch counts and host syncs:
                  LocalGroup(4): bit-equal to sched_volume_domain's frame
 Slice E: training, checkpointing and the dry run (SimpleApp and V64 at
 512^2; no TPU kernel lies on the training path, so each of these phases
-also checks that the port's kernels were launched no time):
+also checks that the ports of the TPU kernels were launched no time; the
+instance search's kernel, which ports none, runs in the forward):
   train_simple   train.loss_fn's gradient (4 rounds, brute intersection)
                  on the card against the same on the CPU; the directional
                  finite difference along kd; the default train step's
@@ -192,6 +210,7 @@ from gravit_tpu_torch.accel.scene_accel import SceneBVH, build_scene_bvh  # noqa
 from gravit_tpu_torch.core.math3d import mat4_translate_scale  # noqa: E402
 from gravit_tpu_torch.ops import _build  # noqa: E402
 from gravit_tpu_torch.ops import bvh_traverse as bt  # noqa: E402
+from gravit_tpu_torch.ops import instance_slab as slab  # noqa: E402
 from gravit_tpu_torch.ops import slice_march as sm  # noqa: E402
 from gravit_tpu_torch.render import checkpoint, train  # noqa: E402
 from gravit_tpu_torch.render import tracer as tr  # noqa: E402
@@ -982,7 +1001,7 @@ def multi_frame(name: str, kind: str, meshes: int, fn, plain_fn,
 
 def split_frame(fn) -> dict:
     """Host wall time of one fn() spent inside the tracer's instance search
-    (_next_instance: the scan or the tree walk), the BVH dispatch
+    (_next_instance: closest_box or the tree walk), the BVH dispatch
     (_intersect_bvh: the pack or the passes, and the launches), the brute
     intersector (intersect_closest) and the shading
     (_process_surface_hits), each call closed by a synchronize; `rest` is
@@ -1241,6 +1260,227 @@ def multi_phases(dev, card: str, occupancy: dict, film: int = 512,
     for rec in held.values():
         del rec["args"]
     return dict(counts=main_counts, held=held)
+
+
+# ---------------------------------------------------------------------------
+# the closest-instance search (ops/instance_slab.py)
+
+SLAB_BLOCK = 256          # threads per block of csrc/instance_slab.cu
+SLAB_LANE_BYTES = 41      # origin, direction, t_max, exclude in; 9 B out
+
+
+def capture_searches(fn) -> tuple:
+    """(fn()'s result, a copy of the arguments (lo, hi, origin, direction,
+    t_max, exclude) of every closest_box call the tracers made in it)."""
+    calls = []
+    orig = slab.closest_box
+
+    def record(lo, hi, origin, direction, t_max, exclude, impl=None):
+        calls.append(tuple(x.detach().clone() for x in (
+            lo, hi, origin, direction, t_max, exclude)))
+        return orig(lo, hi, origin, direction, t_max, exclude, impl=impl)
+
+    tr.closest_box = vt.closest_box = record
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        tr.closest_box = vt.closest_box = orig
+    return out, calls
+
+
+class plain_search:
+    """Inside the block every closest_box call runs the plain version,
+    whatever the device: the frame's one difference from the kernel's."""
+
+    def __enter__(self):
+        self.kernel = slab.closest_box_kernel
+        slab.closest_box_kernel = slab.closest_box_plain
+
+    def __exit__(self, *exc):
+        slab.closest_box_kernel = self.kernel
+        return False
+
+
+def hold_search(name: str, args) -> dict:
+    """The kernel against the plain version on one search's inputs: lanes
+    whose found, nxt or t_entry bits differ (all must be 0)."""
+    k = slab.closest_box_kernel(*args)
+    p = slab.closest_box_plain(*args)
+    torch.cuda.synchronize()
+    off = {key: int((a.view(torch.int32) != b.view(torch.int32)).sum())
+           if a.dtype == torch.float32 else int((a != b).sum())
+           for key, a, b in zip(("found", "nxt", "t_entry"), k, p)}
+    n = int(args[2].shape[0])
+    rec = dict(lanes=n, boxes=int(args[0].shape[0]),
+               tail_lanes=n % SLAB_BLOCK, found=int(p[0].sum()),
+               strided=not args[2].is_contiguous(), mismatched=off,
+               ok=not any(off.values()))
+    log("hold_instance_slab", search=name, **rec)
+    if not rec["ok"]:
+        raise SystemExit(f"instance_slab {name}: kernel != plain")
+    return rec
+
+
+def search_frame(name: str, fn, card: str) -> dict:
+    """One frame with the kernel and with the plain search: bit-equal, one
+    launch a search, and the host's time in the instance search
+    (split_frame) on both sides."""
+    slab.reset_launch_counts()
+    fb, calls = capture_searches(fn)
+    launches = slab.launches_instance_slab
+    with plain_search():
+        fb_plain = fn()
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(fb, fb_plain))
+    searches = sum(c[2].shape[0] > 0 for c in calls)
+    rec = dict(frame=name, card=card, launches=launches, searches=searches,
+               widths=sorted({int(c[2].shape[0]) for c in calls}),
+               bit_equal_to_plain=equal)
+    if name != "volume":
+        fn()
+        after = split_frame(fn)
+        with plain_search():
+            fn()
+            before = split_frame(fn)
+        rec.update(instance_search_ms=after["instance_search_ms"],
+                   total_ms=after["total_ms"],
+                   plain_instance_search_ms=before["instance_search_ms"],
+                   plain_total_ms=before["total_ms"])
+    rec["ok"] = equal and launches == searches > 0
+    log("frame_instance_slab", **rec)
+    if not rec["ok"]:
+        raise SystemExit(f"instance_slab frame {name} failed")
+    return rec
+
+
+def gvt_vol_scene(dev, film: int = 512):
+    """The gvt_vol configuration (portbench/configs/gvt_vol.json): VTK's
+    wavelet at 512^3 in VolApp's eight bricklets of 256, and its camera
+    at 0.6 of the fitted distance."""
+    from gravit_tpu_torch.scene.transfer import TransferFunction
+    from gravit_tpu_torch.scene.volume import Volume
+    from portbench.scenes import rt_wavelet
+
+    data = rt_wavelet.scene((-256, 255), (256, 256, 256))
+    tf = TransferFunction.gray_ramp(data.low, data.high, 0.05)
+    volumes = [Volume(samples=b.samples, origin=b.origin,
+                      spacing=np.ones(3, np.float32), tf=tf)
+               for b in data.bricks]
+    scene = build_volume_scene(volumes, [(i, np.eye(4, dtype=np.float32))
+                                         for i in range(len(volumes))],
+                               device=dev)
+    focus = np.full(3, 255.5)
+    eye = focus + (np.full(3, 2299.5) - focus) * 0.6
+    cam = PerspectiveCamera(eye=tuple(eye), focus=tuple(focus),
+                            up=(0.0, 1.0, 0.0), fov=np.radians(30.0),
+                            film_width=film, film_height=film,
+                            jitter_window=0.5)
+    return scene, cam.generate_rays(dev, volume=True)
+
+
+def instance_slab_phase(dev, card: str, film: int = 512) -> dict:
+    """The search over every instance box (csrc/instance_slab.cu) against
+    its plain version, lane for lane, on every search of SimpleApp's
+    fast-multi frame (the full-width arena and the compacted tails), of the
+    train cell's looped forward (the 2 x 1.25 arena), of a gvt_vol frame
+    (eight bricks) and at widths that are not a multiple of the block, the
+    rays as column slices of a wider table; the gradient route; the frames
+    bit-equal to their plain-search twins, one launch a search; a launch's
+    time against its byte bound. Returns the kernel's row."""
+    W = H = film
+    simple = simple_app(W, H)
+    sscene = build_scene(simple.meshes, simple.instances, simple.lights,
+                         device=dev)
+    srays = simple.camera.generate_rays(dev)
+    if sscene.inst_bvh is not None:
+        raise SystemExit("SimpleApp should search its instances, not a tree")
+
+    def fast():
+        return trace_image_fast_multi(sscene, srays, W, H)
+
+    L = sscene.num_lights
+
+    def looped():
+        return trace_image(sscene, make_arena(srays, L), W, H, max_rounds=64)
+
+    def train_forward():
+        with torch.no_grad():
+            return trace_image(sscene, make_arena(srays, L), W, H,
+                               max_rounds=4, unroll=True)
+
+    vscene, vrays = gvt_vol_scene(dev, film)
+    axes = vt.slice_axes_for(vscene, vrays.direction)
+
+    def volume():
+        return vt.trace_volume(vscene, make_arena(vrays, 0), W, H,
+                               slice_axes=axes)
+
+    held = []
+    _, fast_calls = capture_searches(fast)
+    for i, args in enumerate(fast_calls):
+        held.append(hold_search(f"simple_fast_multi/{i}", args))
+    _, train_calls = capture_searches(train_forward)
+    for i, args in enumerate(train_calls):
+        held.append(hold_search(f"train_forward/{i}", args))
+    _, vol_calls = capture_searches(volume)
+    for i, args in enumerate(vol_calls):
+        held.append(hold_search(f"gvt_vol/{i}", args))
+    # ragged widths, the rays as column slices of a (n, 16) table
+    lo, hi, o, d, t_max, ex = fast_calls[0]
+    for n in (1, 255, 257, W * H - 37):
+        table = torch.zeros((n, 16), dtype=torch.float32, device=dev)
+        table[:, 0:3], table[:, 3:6], table[:, 10] = o[:n], d[:n], t_max[:n]
+        held.append(hold_search(f"ragged_{n}", (
+            lo, hi, table[:, 0:3], table[:, 3:6], table[:, 10], ex[:n])))
+    # where autograd records, t_entry is recomputed from the winner's box
+    og = o.clone().requires_grad_(True)
+    found, nxt, t_grad = slab.closest_box(lo, hi, og, d, t_max, ex)
+    p = slab.closest_box_plain(lo, hi, o, d, t_max, ex)
+    grad_equal = bool(torch.equal(t_grad.detach(), p[2])
+                      and torch.equal(nxt, p[1]) and t_grad.requires_grad)
+    log("hold_instance_slab_grad", lanes=int(o.shape[0]),
+        bit_equal=grad_equal, ok=grad_equal)
+    if not grad_equal:
+        raise SystemExit("instance_slab: the recomputed t_entry differs")
+    widths = {"simple_fast_multi": len(fast_calls),
+              "train_forward": len(train_calls), "gvt_vol": len(vol_calls)}
+    train_args = train_calls[0]
+    del train_calls, vol_calls
+
+    frames = [search_frame("simple_fast_multi", fast, card),
+              search_frame("simple_looped", looped, card),
+              search_frame("volume", volume, card)]
+
+    # a launch's time (CUDA events, back to back) at the full film and the
+    # train arena, against the bytes its lanes move
+    times = {}
+    for key, args in (("full_film", fast_calls[0]),
+                      ("train_arena", train_args)):
+        n = int(args[2].shape[0])
+        ms = cuda_ms(lambda: slab.closest_box_kernel(*args), reps=50)
+        g_ms, g_equal = graph_ms(lambda: slab.closest_box_kernel(*args)[2])
+        plain = cuda_ms(lambda: slab.closest_box_plain(*args), reps=5)
+        bound = n * SLAB_LANE_BYTES / 3.35e12 * 1e3
+        times[key] = dict(ms=ms, graph_ms=g_ms, plain_ms=plain,
+                          bound_ms=bound)
+        log("time_instance_slab", launch=key, card=card, lanes=n,
+            boxes=int(args[0].shape[0]), ms=ms, graph_ms=g_ms,
+            graph_equals_eager=g_equal, plain_ms=plain, bound_ms=bound,
+            bound_by="bytes", share_of_bound=bound / g_ms)
+        if not (bound <= g_ms and g_equal):
+            raise SystemExit(f"instance_slab {key}: faster than its bound, "
+                             "or the replay differs")
+    log("instance_slab", searches_held=len(held), by_frame=widths,
+        max_abs_err=0.0, ok=True)
+    return dict(
+        name="instance_slab (closest instance box)", route="cuda",
+        source="gravit_tpu_torch/csrc/instance_slab.cu", replaces=None,
+        launches=sum(f["launches"] for f in frames), max_abs_err=0.0,
+        ms=times["full_film"]["graph_ms"],
+        plain_ms=times["full_film"]["plain_ms"],
+        bound_ms=times["full_film"]["bound_ms"], bound_by="bytes",
+        library_ms=None, packet_bound_ms=None)
 
 
 # ---------------------------------------------------------------------------
@@ -1984,10 +2224,11 @@ def volume_phases(dev, card: str, film: int = 512, small: int = 64,
     brays = bricks.camera.generate_rays(dev, volume=True)
     barena = make_arena(brays, 0)
     saxes = vt.slice_axes_for(bscene, brays.direction)
-    _, held = count_held_bricks(lambda: vt.trace_volume(
+    _, held_bricks = count_held_bricks(lambda: vt.trace_volume(
         bscene, barena, W, H, slice_axes=saxes))
     fb_wave, counts = check_volume_frame(
-        "frame_wavefront", "V2x49", bricks, {"slice": sum(held), "slab": 0})
+        "frame_wavefront", "V2x49", bricks,
+        {"slice": sum(held_bricks), "slab": 0})
     for key in counts:
         main_counts[key] += counts[key]
     # the wavefront's launches carry masks and, from the second round on,
@@ -3147,6 +3388,7 @@ def main() -> int:
     multi = multi_phases(dev, card, occupancy)
     for k in main_counts:
         main_counts[k] += multi["counts"][k]
+    slab_row = instance_slab_phase(dev, card)
     # ---- slice D: the schedulers ----------------------------------------
     sched = sched_phases(dev, card)
     for k in main_counts:
@@ -3177,6 +3419,7 @@ def main() -> int:
              main_counts["any_hit"], "any_hit"),
             ("bvh_traverse (table over 6 MB, K3)", "K3_subset", k3,
              k3_launches, None))]
+    kernel_rows.append(slab_row)
 
     volume_rows = volume_phases(dev, card)
     # ---- the volume domain scheduler, and through the api ---------------

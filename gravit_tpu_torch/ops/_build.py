@@ -18,7 +18,7 @@ import subprocess
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("bvh_traverse", "slice_march")
+SOURCES = ("bvh_traverse", "slice_march", "instance_slab")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas=-v", "-shared",
               "-Xcompiler", "-fPIC")

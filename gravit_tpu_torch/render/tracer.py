@@ -14,6 +14,9 @@ Result-equivalence map (reference -> here):
   traceShadowRays rtcOccluded            -> the any-hit passes
   generateShadowRays + Shade             -> _process_surface_hits
   TracerBase::shuffleRays                -> shuffle()
+  BVH::intersect (instance leaf)         -> _next_instance: closest_box
+                                            (ops/instance_slab.py) or the
+                                            instance tree
   image->localAdd                        -> scene.image.local_add
 
 Loops whose length depends on the data (the hop loops, the wavefront
@@ -24,9 +27,10 @@ broadcast-multiply + left-to-right sums, never as matmuls.
 Spans (core/timing.py): a tracer call is a `tracer.frame`; inside it
 `tracer.shuffle`, `tracer.intersect` (every hit query), `tracer.shade`,
 `tracer.instance_search` (the next-instance query, the tree walk
-included), `tracer.deposit` (deposits and the clamp), `tracer.round` (a
-looped round), and `tracer.sync` around every read of the card's
-answer on the host.
+included), inside it `tracer.instance_slab` (the search over every
+instance box, one kernel launch on the card), `tracer.deposit` (deposits
+and the clamp), `tracer.round` (a looped round), and `tracer.sync` around
+every read of the card's answer on the host.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from gravit_tpu_torch.core.rays import FLT_MAX, RayArena, RayType
 from gravit_tpu_torch.core.rng import hash_uniform, hash_uniform2, round_extra
 from gravit_tpu_torch.core.timing import span, spanned
 from gravit_tpu_torch.ops.bvh_traverse import PACKET, bvh_intersect
+from gravit_tpu_torch.ops.instance_slab import closest_box, inverse_direction
 from gravit_tpu_torch.ops.intersect import Hit, intersect_closest
 from gravit_tpu_torch.render.scene_build import SceneData
 from gravit_tpu_torch.scene import image as image_lib
@@ -106,7 +111,7 @@ def to_object_space(scene: SceneData, arena: RayArena):
 
 @spanned("tracer.shuffle")
 def shuffle(scene: SceneData, arena: RayArena, fb: torch.Tensor,
-            initial: bool = True):
+            initial: bool = True, impl=None):
     """Assign each unqueued ray its next instance, or retire it
     (TracerBase::shuffleRays, TracerBase.h:325-414, non-volume path).
 
@@ -117,6 +122,7 @@ def shuffle(scene: SceneData, arena: RayArena, fb: torch.Tensor,
     initial=False every pending ray just left that instance, so all of
     them retire directly. initial=True sees an all-PRIMARY wavefront, so
     its retired-shadow deposit is skipped (a guaranteed no-op).
+    impl="plain" runs the instance search's plain version.
     """
     pending = arena.active & (arena.inst < 0)
     is_shadow = arena.type == int(RayType.SHADOW)
@@ -134,7 +140,7 @@ def shuffle(scene: SceneData, arena: RayArena, fb: torch.Tensor,
 
     found, nxt, t_entry = _next_instance(
         scene, arena.origin, arena.direction, arena.t_max, arena.prev,
-        pending)
+        pending, impl=impl)
     requeue = pending & found
     new_origin = torch.where(
         requeue[:, None],
@@ -150,44 +156,27 @@ def shuffle(scene: SceneData, arena: RayArena, fb: torch.Tensor,
 
 @spanned("tracer.instance_search")
 def _next_instance(scene: SceneData, origin, direction, t_max, prev,
-                   pending):
+                   pending, impl=None):
     """BVH::intersect leaf semantics (BVH.h:61-135, `update=true` slab):
     the closest instance AABB with tfar > tnear, tnear > RAY_EPSILON,
     tnear < t_max, excluding `prev`. Scenes with an instance tree walk it
     (accel/instance_bvh.py) and recompute the winner's t_entry from
-    inst_lo / inst_hi; the rest scan the instances with a running strict-<
-    minimum. Both give the same answers. Returns (found, next_inst,
-    t_entry)."""
-    small = torch.abs(direction) < 1e-30
-    d_safe = torch.where(small, 1.0, direction)
-    inv_dir = torch.where(small, torch.where(direction < 0, -1e30, 1e30),
-                          1.0 / d_safe)
-    if scene.inst_bvh is not None:
-        found, nxt, _ = closest_instance(scene.inst_bvh, origin, inv_dir,
-                                         t_max, prev, pending)
-        safe = nxt.clamp(0, scene.num_instances - 1).to(torch.int64)
-        l1 = (scene.inst_lo[safe] - origin) * inv_dir
-        u1 = (scene.inst_hi[safe] - origin) * inv_dir
-        t_entry = torch.where(found, torch.minimum(l1, u1).max(dim=-1).values,
-                              FLT_MAX)
-        return found, nxt, t_entry
-    n = origin.shape[0]
-    dev = origin.device
-    best_t = torch.full((n,), FLT_MAX, dtype=torch.float32, device=dev)
-    best_i = torch.zeros((n,), dtype=torch.int32, device=dev)
-    for i in range(scene.num_instances):
-        tn = torch.full((n,), -FLT_MAX, dtype=torch.float32, device=dev)
-        tf = torch.full((n,), FLT_MAX, dtype=torch.float32, device=dev)
-        for ax in range(3):
-            a = (scene.inst_lo[i, ax] - origin[:, ax]) * inv_dir[:, ax]
-            b = (scene.inst_hi[i, ax] - origin[:, ax]) * inv_dir[:, ax]
-            tn = torch.maximum(tn, torch.minimum(a, b))
-            tf = torch.minimum(tf, torch.maximum(a, b))
-        hit_i = (tf > tn) & (tn > RAY_EPSILON) & (tn < t_max) & (prev != i)
-        closer = hit_i & (tn < best_t)
-        best_t = torch.where(closer, tn, best_t)
-        best_i = torch.where(closer, i, best_i)
-    return best_t < FLT_MAX, best_i, best_t
+    inst_lo / inst_hi; the rest search every instance box in one
+    closest_box call (ops/instance_slab.py: one kernel launch on the card,
+    its plain version on the CPU or with impl="plain"). Both give the
+    same answers. Returns (found, next_inst, t_entry)."""
+    if scene.inst_bvh is None:
+        return closest_box(scene.inst_lo, scene.inst_hi, origin, direction,
+                           t_max, prev, impl=impl)
+    inv_dir = inverse_direction(direction)
+    found, nxt, _ = closest_instance(scene.inst_bvh, origin, inv_dir,
+                                     t_max, prev, pending)
+    safe = nxt.clamp(0, scene.num_instances - 1).to(torch.int64)
+    l1 = (scene.inst_lo[safe] - origin) * inv_dir
+    u1 = (scene.inst_hi[safe] - origin) * inv_dir
+    t_entry = torch.where(found, torch.minimum(l1, u1).max(dim=-1).values,
+                          FLT_MAX)
+    return found, nxt, t_entry
 
 
 def _cosine_hemisphere(normal: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
@@ -678,7 +667,7 @@ def trace_round(scene: SceneData, arena: RayArena, fb: torch.Tensor,
     arena = arena.replace(active=arena.active & ~shadow_occluded)
     spawn = _resolve_spawn_occlusion(scene, accel, spawn, tile, impl=impl)
     arena = _append_rays(arena, spawn, pending=True)
-    return shuffle(scene, arena, fb, initial=False)
+    return shuffle(scene, arena, fb, initial=False, impl=impl)
 
 
 @spanned("tracer.frame")
@@ -696,7 +685,7 @@ def trace_image(scene: SceneData, arena: RayArena, width: int, height: int,
     """
     fb = image_lib.new_framebuffer(width, height, arena.origin.device)
     tile = _choose_tile(scene.num_triangles)
-    arena, fb = shuffle(scene, arena, fb)      # FilterRaysLocally analog
+    arena, fb = shuffle(scene, arena, fb, impl=impl)  # FilterRaysLocally
     for r in range(max_rounds):
         if not unroll and not _read((arena.active & (arena.inst >= 0)).any()):
             break
@@ -827,14 +816,15 @@ def trace_image_fast_multi(scene: SceneData, rays: RayArena, width: int,
     Equal to trace_image when no ray can bounce (camera max_depth 1);
     callers gate on that. `rays` is the raw camera wavefront. Each loop
     reads its condition on the host once per round. `impl="plain"` runs
-    the traversal's plain version (comparisons only).
+    the traversal's and the instance search's plain versions (comparisons
+    only).
     """
     dev = rays.origin.device
     fb = image_lib.new_framebuffer(width, height, dev)
     n0 = rays.capacity
     rays, dense_deposit, tiled, T = _film_layout(
         rays, width, height, samples, tile_order, dense_deposit)
-    arena, fb = shuffle(scene, rays, fb)        # FilterRaysLocally analog
+    arena, fb = shuffle(scene, rays, fb, impl=impl)  # FilterRaysLocally
     n = arena.capacity
     tile = _choose_tile(scene.num_triangles)
 
@@ -861,7 +851,7 @@ def trace_image_fast_multi(scene: SceneData, rays: RayArena, width: int,
         pending = arena.active & (arena.inst < 0)
         found, nxt, t_entry = _next_instance(
             scene, arena.origin, arena.direction, arena.t_max, arena.prev,
-            pending)
+            pending, impl=impl)
         requeue = pending & found
         arena = arena.replace(
             origin=torch.where(requeue[:, None], arena.origin
@@ -899,7 +889,8 @@ def trace_image_fast_multi(scene: SceneData, rays: RayArena, width: int,
     L = scene.num_lights
     if L == 0:
         return image_lib.clamp_rgb(fb)
-    spawn, dep = _multi_resolve(scene, arena, hit, hitr, closest, max_rounds)
+    spawn, dep = _multi_resolve(scene, arena, hit, hitr, closest, max_rounds,
+                                impl)
     with span("tracer.deposit"):
         if dense_deposit:
             fb = _dense_spawn_deposit(fb, spawn, dep, n, n0, samples, tiled,
@@ -914,7 +905,7 @@ def trace_image_fast_multi(scene: SceneData, rays: RayArena, width: int,
 
 
 def _multi_resolve(scene: SceneData, arena: RayArena, hit: Hit, hitr,
-                   closest, max_rounds: int):
+                   closest, max_rounds: int, impl=None):
     """Fast-multi phases B + C at the arena's width: one dense shade +
     spawn over the resolved hits (active lanes), then the shadow any-hit
     hop loop (full width while more than m//8 rows live, the compacted
@@ -945,7 +936,7 @@ def _multi_resolve(scene: SceneData, arena: RayArena, hit: Hit, hitr,
         inst = torch.where(escapes, -1, inst)
         pending = valid & ~dead & ~done & (inst < 0)
         found, nxt, t_entry = _next_instance(scene, origin, s_dir, s_tmax,
-                                             prev, pending)
+                                             prev, pending, impl=impl)
         requeue = pending & found
         origin = torch.where(requeue[:, None],
                              origin + s_dir * (t_entry * 0.95)[:, None],
@@ -990,7 +981,8 @@ def trace_image_fast(scene: SceneData, rays: RayArena, width: int,
     `rays` is the raw camera wavefront on the device the frame runs on.
     `dense_deposit=True` requires a whole-film wavefront (lane i == pixel
     i // S^2); other wavefronts deposit through the pixel-id scatter.
-    `impl="plain"` runs the traversal's plain version (comparisons only).
+    `impl="plain"` runs the traversal's and the instance search's plain
+    versions (comparisons only).
     """
     if scene.num_instances != 1:
         raise ValueError("trace_image_fast renders one instance; "
@@ -1005,7 +997,7 @@ def trace_image_fast(scene: SceneData, rays: RayArena, width: int,
         rays, width, height, samples, tile_order, dense_deposit)
 
     # phase 0: assign camera rays their first (only) instance
-    arena, fb = shuffle(scene, rays, fb)
+    arena, fb = shuffle(scene, rays, fb, impl=impl)
 
     # phase 1: K = max_depth bounce generations; generation K-1 cannot
     # bounce (depth counts down from max_depth), so it runs no_bounce

@@ -143,7 +143,7 @@ def trace_volume_domain(scene_stacked: VolumeSceneData, owners,
         scenes.append(shard(scene_stacked, d, dev))
         # the generic first queueing, then the rays whose first brick this
         # member owns
-        a = volume_tracer.filter_initial(scenes[-1], arena)
+        a = volume_tracer.filter_initial(scenes[-1], arena, impl=impl)
         a, d_claim = claim(a, owner_of(a.inst) == d, c_local)
         arenas.append(a)
         fbs.append(image_lib.new_framebuffer(width, height, dev))
@@ -162,8 +162,8 @@ def trace_volume_domain(scene_stacked: VolumeSceneData, owners,
             a = volume_tracer.march_round(scenes[k], arenas[k],
                                           slice_axes=slice_axes, impl=impl,
                                           volumes=bricks[k])
-            arenas[k], fbs[k] = volume_tracer.shuffle_volume(scenes[k], a,
-                                                             fbs[k])
+            arenas[k], fbs[k] = volume_tracer.shuffle_volume(
+                scenes[k], a, fbs[k], impl=impl)
             sends.append(queued(arenas[k]) & (owner_of(arenas[k].inst) != d))
         n_send = dom.all_reduce([s.sum() for s in sends])[0]
         if int(n_send) == 0:
