@@ -25,6 +25,14 @@ indices into the same list (None and its own index for a root), so the
 root says which frame or step a span belongs to. Spans nest on the
 thread that renders.
 
+A count is the span's companion for a quantity: `count(name, value)`
+records `value` under `name` while someone listens, as `span` does, and
+keeps it as given, a device scalar included: no `.item()`, no sync.
+`counted()` sums each name's values on the host once the work is done
+(a read of a device value waits for the card there). A caller whose value
+would cost a launch tests `listening()` before it computes it, so that
+nothing runs while no one listens.
+
 global_counter (core/utils/global_counter.h:34-54) sums named counts
 across ranks: here GlobalCounter.device_sum all-reduces over a group
 (parallel/).
@@ -58,6 +66,7 @@ class Span(NamedTuple):
 
 _records: list = []     # [name, start_ns, end_ns, parent, root], preorder
 _open: List[int] = []   # indices of the spans entered and not yet left
+_counts: list = []      # [(name, value)] in the order recorded
 _listeners = 0          # recording() contexts open
 
 
@@ -100,6 +109,12 @@ class _On:
         return False
 
 
+def listening() -> bool:
+    """Whether a recording() or a torch.profiler session is active: what
+    span and count record under."""
+    return bool(_listeners) or _profiler_on()
+
+
 def span(name: str):
     """A context that records the host time spent inside it under `name`
     while a recording() or a torch.profiler session is active, and does
@@ -107,6 +122,24 @@ def span(name: str):
     if _listeners or _profiler_on():
         return _On(name)
     return _OFF
+
+
+def count(name: str, value) -> None:
+    """Record `value` (a number or a 0-d tensor) under `name` while someone
+    listens; nothing otherwise. The value is kept as given: no copy to the
+    host, no sync."""
+    if _listeners or _profiler_on():
+        _counts.append((name, value))
+
+
+def counted() -> dict:
+    """{name: the sum of its recorded values} over the counts not cleared,
+    as Python numbers; reads device values, so it waits for the card."""
+    out = {}
+    for name, value in _counts:
+        v = value.item() if isinstance(value, torch.Tensor) else value
+        out[name] = out.get(name, 0) + v
+    return out
 
 
 def spanned(name: str):
@@ -127,11 +160,12 @@ def recorded(since: int = 0) -> List[Span]:
 
 
 def clear() -> None:
-    """Forget every recorded span; not inside an open one, whose index
-    would dangle."""
+    """Forget every recorded span and count; not inside an open span, whose
+    index would dangle."""
     if _open:
         raise RuntimeError("clear() inside an open span")
     _records.clear()
+    _counts.clear()
 
 
 def _by_name(spans: List[Span], since: int) -> dict:

@@ -29,8 +29,12 @@ Spans (core/timing.py): a tracer call is a `tracer.frame`; inside it
 `tracer.instance_search` (the next-instance query, the tree walk
 included), inside it `tracer.instance_slab` (the search over every
 instance box, one kernel launch on the card), `tracer.deposit` (deposits
-and the clamp), `tracer.round` (a looped round), and `tracer.sync` around
-every read of the card's answer on the host.
+and the clamp), `tracer.round` (a looped round), `tracer.bounce` (each
+bounce generation g >= 1 of trace_image_fast), and `tracer.sync` around
+every read of the card's answer on the host. Counts: each bounce
+generation's traced lanes (`tracer.bounce_lanes`, the arena's width) and
+lanes queued live in it (`tracer.bounce_live`, one reduction on the card,
+made only while someone listens).
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ from gravit_tpu_torch.accel.instance_bvh import closest_instance
 from gravit_tpu_torch.core.math3d import cross3, dot3
 from gravit_tpu_torch.core.rays import FLT_MAX, RayArena, RayType
 from gravit_tpu_torch.core.rng import hash_uniform, hash_uniform2, round_extra
-from gravit_tpu_torch.core.timing import span, spanned
+from gravit_tpu_torch.core.timing import count, listening, span, spanned
 from gravit_tpu_torch.ops.bvh_traverse import PACKET, bvh_intersect
 from gravit_tpu_torch.ops.instance_slab import closest_box, inverse_direction
 from gravit_tpu_torch.ops.intersect import Hit, intersect_closest
@@ -1002,19 +1006,30 @@ def trace_image_fast(scene: SceneData, rays: RayArena, width: int,
     # phase 1: K = max_depth bounce generations; generation K-1 cannot
     # bounce (depth counts down from max_depth), so it runs no_bounce
     tile = _choose_tile(scene.num_triangles)
-    spawns = []
-    for g in range(max_depth):
+
+    def generation(g, arena):
         o_obj, d_obj, ray_mesh = to_object_space(scene, arena)
         queued = arena.active & (arena.inst >= 0) & (ray_mesh >= 0)
+        if g and listening():
+            # the whole arena is traced under the mask of the lanes queued
+            count("tracer.bounce_lanes", queued.shape[0])
+            count("tracer.bounce_live", queued.sum())
         hit = _intersect(scene, accel, o_obj, d_obj, ray_mesh, queued, tile,
                          impl=impl)
         surf_hits = queued & (hit.prim >= 0)
         arena, spawn_g = _process_surface_hits(
             scene, arena, hit, surf_hits, g, no_bounce=(g == max_depth - 1))
-        spawns.append(spawn_g)
         if g < max_depth - 1:
             arena = arena.replace(
                 active=arena.active & ~(queued & (hit.prim < 0)))
+        return arena, spawn_g
+
+    arena, spawn_g = generation(0, arena)
+    spawns = [spawn_g]
+    for g in range(1, max_depth):
+        with span("tracer.bounce"):
+            arena, spawn_g = generation(g, arena)
+        spawns.append(spawn_g)
     spawn = torch.cat(spawns, dim=0)
 
     # phase 2: occlusion-test the dense (generation, light, lane) spawn

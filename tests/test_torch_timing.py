@@ -3,13 +3,20 @@ unless a recording() or a profiler listens; under the profiler every span
 is a CPU function event (not a user annotation, which the profiler would
 mirror onto a device's timeline), nested as the program nests them; each
 tracer and the train step record their root and phase spans; the report's
-self times add up to the root."""
+self times add up to the root. The megapass's bounce generations record one
+`tracer.bounce` span each and count their lanes; with no listener a frame
+records nothing and runs the same operations as before the counter, counted
+op by op under a dispatch mode (a profiler would itself be a listener)."""
 
+import collections
 import re
 
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
+from torch.utils._python_dispatch import TorchDispatchMode
+
+import chip_smoke
 
 from gravit_tpu_torch import api, dryrun
 from gravit_tpu_torch.accel.scene_accel import build_scene_bvh
@@ -163,3 +170,76 @@ def test_report_self_times_add_up_to_the_root():
     root_ms = rows["facade.render"][0]
     assert sum(v[2] for v in rows.values()) == pytest.approx(root_ms,
                                                              rel=0.01)
+
+
+def _bounce_frame(depth):
+    """A trace_image_fast frame of the bunny stand-in at 24 bands, with its
+    BVH, at camera ray depth `depth`."""
+    spec = chip_smoke.make_scene(bands=24, width=FILM, height=FILM,
+                                 max_depth=depth)
+    scene = build_scene(spec.meshes, spec.instances, spec.lights,
+                        device="cpu")
+    accel = build_scene_bvh(spec.meshes, device="cpu")
+    return lambda: tracer.trace_image_fast(
+        scene, spec.camera.generate_rays("cpu"), FILM, FILM, accel=accel,
+        max_depth=depth)
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_bounce_generations_record_a_span_and_count_their_lanes(
+        depth, monkeypatch):
+    run = _bounce_frame(depth)
+    bounced = []
+    orig = tracer._process_surface_hits
+
+    def recount(scene, arena, *a, **kw):
+        out, spawn = orig(scene, arena, *a, **kw)
+        bounced.append(int((out.active & (out.depth < arena.depth)).sum()))
+        return out, spawn
+
+    monkeypatch.setattr(tracer, "_process_surface_hits", recount)
+    with profile(activities=[ProfilerActivity.CPU]):
+        run()
+    spans = timing.recorded()
+    assert_nested(spans)
+    bounce = [i for i, s in enumerate(spans) if s.name == "tracer.bounce"]
+    assert len(bounce) == depth - 1
+    for i in bounce:
+        assert spans[spans[i].parent].name == "tracer.frame"
+        assert {"tracer.intersect", "tracer.shade"} <= {
+            s.name for s in spans if s.parent == i}
+    counts = timing.counted()
+    if depth == 1:
+        assert counts == {}
+        return
+    width = -(-FILM * FILM // tracer.PACKET) * tracer.PACKET
+    assert counts["tracer.bounce_lanes"] == (depth - 1) * width
+    # a generation g >= 1 queues the lanes that bounced in generation g-1
+    assert counts["tracer.bounce_live"] == sum(bounced[:-1]) > 0
+
+
+class _Ops(TorchDispatchMode):
+    """The ATen operations run inside, by name."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops[str(func)] += 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_no_listener_records_nothing_and_adds_no_operation(depth):
+    run = _bounce_frame(depth)
+    with _Ops() as off:
+        run()
+    assert timing.recorded() == [] and timing.counted() == {}
+    with timing.recording():
+        with _Ops() as on:
+            run()
+    # listening adds one reduction a bounce generation, and no host read
+    assert not off.ops - on.ops
+    assert dict(on.ops - off.ops) == (
+        {"aten.sum.default": depth - 1} if depth > 1 else {})
